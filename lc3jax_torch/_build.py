@@ -1,0 +1,128 @@
+"""Builds the port's CUDA kernels with nvcc and loads them through ctypes.
+
+Every `csrc/*.cu` file is compiled by hand into one shared library with a
+plain C interface (no PyTorch headers: such a file builds in seconds, one
+that includes them in minutes):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+         -shared -Xcompiler -fPIC -o build/lc3jax_torch/liblc3jax_torch_<hash>.so
+         lc3jax_torch/csrc/*.cu
+
+`--fmad=false` keeps every float multiply and add separately rounded, so the
+TNS and LTPF kernels equal their plain PyTorch versions bit for bit (eager
+PyTorch rounds once per op and never contracts to fma).
+
+The library is built at first use into `build/lc3jax_torch/` at the repo
+root, keyed by a hash of the sources and the flags, so an edited source
+rebuilds and an unchanged one loads at once. Sources come from this checkout
+only; nothing is fetched. A missing `nvcc` or a failed build raises: there
+is no fallback for a CUDA tensor.
+
+Each C entry point launches on the stream it is given, allocates nothing and
+returns `cudaGetLastError()`; `check` turns a non-zero code into an error.
+Pointers and the stream are passed as `ctypes.c_void_p`, ints as `c_int`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lc3jax_torch"
+CUDA_DEFAULT = Path("/usr/local/cuda")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+)
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+# C signatures: name -> argtypes (every entry returns int, a cudaError_t)
+SIGNATURES = {
+    "lc3t_tns_synthesis": [_PTR] * 5 + [_INT] * 2 + [_PTR],
+    "lc3t_ltpf_both_passes": [_PTR] * 15 + [_INT] * 7 + [_PTR],
+    "lc3t_parse": [_PTR] * 22 + [_INT] * 5 + [_PTR],
+}
+
+_lib = None
+build_seconds: float | None = None  # wall time of the last nvcc run (None: cached)
+
+
+def find_nvcc() -> str | None:
+    """nvcc from PATH, then $CUDA_HOME/bin, then the default toolkit."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), CUDA_DEFAULT):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    return None
+
+
+def library_path() -> Path:
+    sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sources:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"liblc3jax_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu if the hashed library is missing; return its path."""
+    global build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "lc3jax_torch: nvcc not found (PATH, $CUDA_HOME/bin, "
+            f"{CUDA_DEFAULT}/bin); the CUDA kernels cannot be built, and a "
+            "CUDA tensor has no plain fallback"
+        )
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"lc3jax_torch: nvcc failed with code {res.returncode}:\n"
+            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        L = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(L, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        L.lc3t_error_string.argtypes = [ctypes.c_int]
+        L.lc3t_error_string.restype = ctypes.c_char_p
+        _lib = L
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    if code != 0:
+        msg = lib().lc3t_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({code}: {msg})")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,173 @@
+"""Carries the codec's constants and state between numpy and torch.
+
+The decoder's "weights" are the static per-config tables of
+`lc3jax.dsp.params.decoder_params` (numpy): the DCT-IV matrix, the window,
+the LCG jump tables, the LTPF taps, the band maps, plus the 256-entry
+global-gain table. `decoder_tables` turns them into device tensors once per
+(config, frame bits, device).
+
+The state and frame converters take numpy arrays (or anything
+`np.asarray` accepts) laid out like the leaves of the JAX pytrees
+`DecoderState`, `LtpfState` and `ParsedFrames`, so the same inputs can be
+handed to both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from lc3jax import tables as T
+from lc3jax.config import Lc3Config
+from lc3jax.dsp.params import DecoderParams, decoder_params
+
+from .dsp.decoder import BOOL_FRAME_FIELDS, DecoderState, ParsedFrames
+from .dsp.ltpf import LtpfState, _gains
+
+F32 = np.float32
+
+
+@dataclass(frozen=True)
+class DecoderTables:
+    """Device-resident constants for one (config, frame bits, device)."""
+
+    p: DecoderParams  # the numpy source (static ints and shapes)
+    dct: torch.Tensor  # f64 [nf, nf] DCT-IV (the f32 matrix of decoder_params, widened)
+    window_rev: torch.Tensor  # f32 [2nf]
+    imdct_gain: float
+    band_of_line: torch.Tensor  # int64 [ne]
+    bw_stop: torch.Tensor  # int64 [5]
+    nf_lcg_A: torch.Tensor  # int64 [ne + 2] noise-fill LCG jump tables
+    nf_lcg_B: torch.Tensor
+    plc_lcg_A: torch.Tensor  # int64 [ne + 2]
+    plc_lcg_B: torch.Tensor
+    gg_table: torch.Tensor  # f32 [256] 10^((i + gg_off) / 28)
+    tns_bounds: torch.Tensor  # int32 [5, 4] (lo0, hi0, lo1, hi1) per bandwidth
+    tns_sin: torch.Tensor  # f32 [17] quantised reflection coefficients
+    lfcb: torch.Tensor  # f32 [32, 8]
+    hfcb: torch.Tensor  # f32 [32, 8]
+    sns_gains: torch.Tensor  # f32 [4, 8]
+    dct16: torch.Tensor  # f32 [16, 16]
+    interp_w: torch.Tensor  # f32 [4]
+    ltpf_num: torch.Tensor  # f32 [l_num + 1] the active gain row, scaled
+    ltpf_den_tab: torch.Tensor  # f32 [4, l_den + 1] scaled by the gain
+    fade_up: torch.Tensor  # f32 [nf]
+    fade_down: torch.Tensor  # f32 [nf]
+    in_fade: torch.Tensor  # bool [nf]
+
+
+def global_gain_table(cfg: Lc3Config, nbits: int) -> np.ndarray:
+    """Exact 10^((i + gg_off)/28) for the 256 gain indices (glibc powf)."""
+    from lc3jax.ref import fp
+
+    fs = cfg.fs_ind + 1
+    gg_off = -min(nbits // (10 * fs), 115) - 105 - 5 * fs
+    return np.array(
+        [fp.powf(F32(10.0), F32(F32(i) + F32(gg_off)) / F32(28.0)) for i in range(256)],
+        dtype=F32,
+    )
+
+
+def tns_sin_table() -> np.ndarray:
+    """17-entry sin table; index 0 maps to 0.0 (the rc_i == 0 sentinel)."""
+    tab = np.sin(np.pi / 17.0 * (np.arange(17, dtype=np.float64) - 8.0)).astype(F32)
+    tab[0] = 0.0
+    return tab
+
+
+@lru_cache(maxsize=None)
+def _decoder_tables(cfg: Lc3Config, nbits: int, device: torch.device) -> DecoderTables:
+    p = decoder_params(cfg)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, F32), device=device)
+    i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    sns_gains = np.zeros((4, 8), F32)
+    for j, g in enumerate(T.SNS_GAINS_BY_SHAPE):
+        sns_gains[j, : len(g)] = g
+    gain_ltpf, gain_ind = _gains(p, nbits)
+    n = np.arange(p.nf)
+    norm = F32(p.norm)
+    in_fade = n < p.sample_2p5ms
+    fade_up = np.where(in_fade, n.astype(F32) / norm, F32(1.0)).astype(F32)
+    fade_down = np.where(in_fade, F32(1.0) - n.astype(F32) / norm, F32(0.0)).astype(F32)
+    return DecoderTables(
+        p=p,
+        dct=torch.as_tensor(p.dct.astype(np.float64), device=device),
+        window_rev=f32(p.window_rev),
+        imdct_gain=float(p.imdct_gain),
+        band_of_line=i64(p.band_of_line),
+        bw_stop=i64(p.bw_stop),
+        nf_lcg_A=i64(p.nf_lcg_A),
+        nf_lcg_B=i64(p.nf_lcg_B),
+        plc_lcg_A=i64(p.plc_lcg_A),
+        plc_lcg_B=i64(p.plc_lcg_B),
+        gg_table=f32(global_gain_table(cfg, nbits)),
+        tns_bounds=torch.as_tensor(
+            np.asarray(p.tns_filter_bounds, np.int32).reshape(5, 4), device=device
+        ),
+        tns_sin=f32(tns_sin_table()),
+        lfcb=f32(T.LFCB),
+        hfcb=f32(T.HFCB),
+        sns_gains=f32(sns_gains),
+        dct16=f32(T.DCT16),
+        interp_w=f32([0.125, 0.375, 0.625, 0.875]),
+        ltpf_num=f32(F32(0.85) * F32(gain_ltpf) * p.ltpf_num_tab[gain_ind]),
+        ltpf_den_tab=f32(F32(gain_ltpf) * p.ltpf_den_tab),
+        fade_up=f32(fade_up),
+        fade_down=f32(fade_down),
+        in_fade=torch.as_tensor(in_fade, device=device),
+    )
+
+
+def decoder_tables(cfg: Lc3Config, nbits: int, device="cpu") -> DecoderTables:
+    """The decoder's constants on `device`, built once and cached."""
+    return _decoder_tables(cfg, int(nbits), torch.device(device))
+
+
+# ------------------------------------------------------------ frames/state
+
+def parsed_frames_from_numpy(d, device="cpu") -> ParsedFrames:
+    """ParsedFrames from a dict of arrays or any object with the 19 fields
+    as attributes (a JAX or numpy ParsedFrames)."""
+    get = d.__getitem__ if isinstance(d, dict) else lambda k: getattr(d, k)
+    out = {}
+    for f in dataclasses.fields(ParsedFrames):
+        dt = bool if f.name in BOOL_FRAME_FIELDS else np.int32
+        out[f.name] = torch.as_tensor(np.asarray(get(f.name)).astype(dt), device=device)
+    return ParsedFrames(**out)
+
+
+_STATE_DTYPES = {
+    "plc_seed": np.int32, "plc_lost": np.int32, "p_int": np.int32, "p_fr": np.int32,
+    "active": bool,
+}
+
+
+def _tensor(name, a, device):
+    return torch.as_tensor(np.asarray(a, _STATE_DTYPES.get(name, F32)), device=device)
+
+
+def decoder_state_from_numpy(d, device="cpu") -> DecoderState:
+    """DecoderState from {field: array, ..., "ltpf": {field: array}} (the
+    leaves of the JAX DecoderState / LtpfState)."""
+    ltpf = LtpfState(**{
+        f.name: _tensor(f.name, d["ltpf"][f.name], device)
+        for f in dataclasses.fields(LtpfState)
+    })
+    return DecoderState(
+        ltpf=ltpf,
+        **{f.name: _tensor(f.name, d[f.name], device)
+           for f in dataclasses.fields(DecoderState) if f.name != "ltpf"},
+    )
+
+
+def decoder_state_to_numpy(st: DecoderState) -> dict:
+    """The inverse of decoder_state_from_numpy: nested dict of numpy arrays."""
+    out = {f.name: getattr(st, f.name).cpu().numpy()
+           for f in dataclasses.fields(DecoderState) if f.name != "ltpf"}
+    out["ltpf"] = {f.name: getattr(st.ltpf, f.name).cpu().numpy()
+                   for f in dataclasses.fields(LtpfState)}
+    return out

@@ -1,0 +1,87 @@
+"""Inverse TNS: the CUDA kernel (csrc/tns_synthesis.cu) and its plain
+PyTorch version.
+
+Replaces lc3jax/dsp/pallas_tns.py:tns_synthesis_pallas; semantics of
+lc3jax/dsp/decoder.py:tns_synthesis (an 8-tap IIR lattice over spectral
+lines, up to two filters per frame). A CPU tensor takes the plain version;
+a CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+launches = 0  # kernel launches since the last reset
+
+
+def _operands(tab, bandwidth, rc_order, rc_i):
+    bounds = tab.tns_bounds[bandwidth.long()]  # [S, 4] lo0, hi0, lo1, hi1
+    rc_q = tab.tns_sin[rc_i.long()]  # [S, 16]
+    return bounds, rc_q, rc_order.to(torch.int32)
+
+
+def tns_synthesis_plain(tab, x, bandwidth, rc_order, rc_i):
+    """x [S, ne] f32 -> [S, ne]: the lattice line by line, vectorised over
+    streams. Coefficients at or past a filter's order are zeroed, so a tap
+    the reference skips subtracts an exact zero."""
+    S, ne = x.shape
+    bounds, rc_q, order = _operands(tab, bandwidth, rc_order, rc_i)
+    n = torch.arange(ne, device=x.device)[:, None]  # [ne, 1]
+    in_f0 = (n >= bounds[:, 0]) & (n < bounds[:, 1]) & (order[:, 0] > 0)
+    in_f1 = (n >= bounds[:, 2]) & (n < bounds[:, 3]) & (order[:, 1] > 0)
+    active = in_f0 | in_f1  # [ne, S]
+    line_order = torch.where(in_f1, order[:, 1], order[:, 0])  # [ne, S]
+    kk = torch.arange(8, device=x.device)
+    rc = torch.where(in_f1[..., None], rc_q[None, :, 8:], rc_q[None, :, :8])  # [ne, S, 8]
+    rc = torch.where(kk < line_order[..., None], rc, 0.0)
+    upd = kk[:7] < (line_order[..., None] - 1)  # [ne, S, 7]
+    kmax = int(line_order.max()) if ne else 0
+    rows = active.any(dim=1).nonzero().flatten().tolist()
+
+    out = x.clone()
+    state = torch.zeros(S, 8, dtype=x.dtype, device=x.device)
+    xt = x.t()
+    for li in rows:
+        r = rc[li]
+        t = xt[li]
+        ts = [t] * 8
+        for k in range(kmax - 1, -1, -1):
+            t = t - r[:, k] * state[:, k]
+            ts[k] = t
+        cand = r[:, :7] * torch.stack(ts[:7], 1) + state[:, :7]
+        new_state = torch.cat([t[:, None], torch.where(upd[li], cand, state[:, 1:])], 1)
+        a = active[li]
+        state = torch.where(a[:, None], new_state, state)
+        out[:, li] = torch.where(a, t, xt[li])
+    return out
+
+
+def tns_synthesis(tab, x, bandwidth, rc_order, rc_i):
+    """Inverse TNS, x [S, ne] f32 -> [S, ne], for any S >= 1."""
+    if x.device.type == "cpu":
+        return tns_synthesis_plain(tab, x, bandwidth, rc_order, rc_i)
+    if x.device.type != "cuda":
+        raise ValueError(f"tns_synthesis: unsupported device {x.device}")
+    global launches
+    S, ne = x.shape
+    if x.dtype != torch.float32:
+        raise ValueError(f"tns_synthesis: x must be float32, got {x.dtype}")
+    for name, t, shape in (("bandwidth", bandwidth, (S,)), ("rc_order", rc_order, (S, 2)),
+                           ("rc_i", rc_i, (S, 16))):
+        if t.device != x.device or tuple(t.shape) != shape:
+            raise ValueError(f"tns_synthesis: {name} must be {shape} on {x.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    bounds, rc_q, order = _operands(tab, bandwidth, rc_order, rc_i)
+    bounds, rc_q, order = bounds.contiguous(), rc_q.contiguous(), order.contiguous()
+    x_t = x.t().contiguous()  # [ne, S]: streams on the fast axis
+    out_t = torch.empty_like(x_t)
+    with torch.cuda.device(x.device):
+        err = _build.lib().lc3t_tns_synthesis(
+            x_t.data_ptr(), rc_q.data_ptr(), bounds.data_ptr(), order.data_ptr(),
+            out_t.data_ptr(), S, ne, _build.stream_ptr(x.device),
+        )
+    _build.check(err, "lc3t_tns_synthesis")
+    launches += 1
+    return out_t.t()
