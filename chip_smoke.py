@@ -1,28 +1,46 @@
 #!/usr/bin/env python3
-"""Smoke run of lc3jax_torch on one CUDA card: build, check, decode, time.
+"""Smoke run of lc3jax_torch on one CUDA card: build, check, decode,
+encode, time.
 
     python3 chip_smoke.py
 
 Phases, each printing one line (any failure exits non-zero before the
-last line):
+last line). All run at 48 kHz / 10 ms / 150 B, S = 2048 streams, unless
+stated:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
-2. build: the three kernels from lc3jax_torch/csrc with nvcc;
-3. kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes (48 kHz / 10 ms / 150 B, S = 2048): parse on
-   encoded frames mixed with random garbage (all 19 fields equal), TNS on
-   random lattices (equal), LTPF on random-state stress inputs (<= 1e-3);
-4. slice: BatchDecoder(48 kHz, S = 2048, 150 B, cuda).decode over T frames
-   of mixed content with one corrupt frame; PCM within 1 LSB and >= 100 dB
-   SNR of the oracle decoder (lc3jax.ref) on each distinct stream; every
+2. build: the seven kernels from lc3jax_torch/csrc, one nvcc per source, all
+   at once, then the host packer (native/lc3_bitstream.cc);
+3. kernels: each decode kernel against its plain PyTorch version on the
+   card: parse on encoded frames mixed with random garbage (all 19 fields
+   equal), TNS synthesis on random lattices (equal), LTPF on random-state
+   stress inputs (<= 1e-3);
+4. enc-kernels: the four encoder kernels against their plain versions, on
+   random inputs and on the inputs the encoder gives them for the bench
+   content (SNS PVQ, TNS autocorrelation, TNS analysis, bit model: equal);
+5. slice: BatchDecoder(cuda).decode over T = 12 frames of the bench content
+   (the four signals tiled over the streams, one corrupt frame); PCM within
+   1 LSB and >= 100 dB SNR of the stored oracle decode; every decode
    kernel's launch count equals T;
-5. corpus: the six corpus geometries and stream50 (tests/goldens) through
-   the port on the card, same bound against the stored oracle PCM;
-6. times: CUDA events after warm-up, median of 20: the fused step and each
-   kernel against its plain version.
+6. corpus: the six corpus geometries and stream50 through the decoder at
+   S = 1, same bound against the stored oracle PCM;
+7. encode: BatchEncoder(cuda).encode over the T frames of the bench
+   content; every stream's bytes equal the oracle's; launch counts SNS =
+   autocorrelation = analysis = T, bit model = 2T;
+8. encode-corpus: the six corpus geometries and stream50 through the
+   encoder at S = 1, every frame equal to the oracle's bytes;
+9. times: CUDA events after warm-up, median of 20: the fused decode step,
+   each kernel, its plain version and the library call where one exists.
+   The encode DSP step (CUDA events, host wall, thread CPU time) and the
+   whole encode with the host pack (host wall, thread CPU time) alternate
+   over 20 reps, each given as median [min-max].
 
-Then one JSON line with the kernels, and last the device line. Uses no JAX:
-the references are the numpy oracle lc3jax.ref and the .npz goldens.
+Then the card's line, one JSON line with the kernels (each with its bound:
+the larger of its bytes over 3.35 TB/s and its f32 operations over
+67 TFLOP/s, the H100 SXM's published peaks, counted from this run's
+inputs), and last the device line. Uses no JAX and nothing of the lc3jax
+package: the references are the stored goldens of tests/goldens
+(tools/gen_torch_encode_goldens.py made the bench content's).
 """
 
 from __future__ import annotations
@@ -43,6 +61,8 @@ T_FRAMES = 12
 REPS = 20
 CORPUS = ["48000_10ms_120", "48000_10ms_20", "48000_10ms_400", "44100_7.5ms_100",
           "16000_10ms_60", "8000_10ms_40"]
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, published
 
 
 def log(phase: str, msg: str) -> None:
@@ -72,40 +92,6 @@ def check_envelope(name: str, pcm, want) -> str:
     return f"{name}: max {max_lsb} LSB, SNR {snr:.1f} dB"
 
 
-def content(cfg, T: int, rng) -> list[np.ndarray]:
-    """The four signals of bench.py's batch, T frames long."""
-    t = np.arange(T * cfg.nf) / cfg.fs
-    n = len(t)
-    return [
-        (8000 * np.sin(2 * np.pi * 220 * t)).astype(np.int16),
-        (3000 * np.sin(2 * np.pi * 997 * t) + 500 * rng.standard_normal(n)).astype(np.int16),
-        (1500 * rng.standard_normal(n)).astype(np.int16),
-        (6000 * np.sin(2 * np.pi * 97 * t)).astype(np.int16),
-    ]
-
-
-def encode_streams(cfg, signals, nbytes: int) -> np.ndarray:
-    """Oracle-encoded frames [len(signals), T, nbytes]."""
-    from lc3jax.ref.encoder import Lc3Encoder
-
-    out = []
-    for sig in signals:
-        enc = Lc3Encoder(1, cfg.n_ms, cfg.fs)
-        T = len(sig) // cfg.nf
-        out.append([np.frombuffer(bytes(enc.encode_frame(0, sig[f * cfg.nf:(f + 1) * cfg.nf],
-                                                          nbytes)), np.uint8)
-                    for f in range(T)])
-    return np.asarray(out, np.uint8)
-
-
-def oracle_decode(cfg, frames: np.ndarray) -> np.ndarray:
-    """Oracle PCM [T, nf] of one stream's frames [T, nbytes]."""
-    from lc3jax.ref.decoder import Lc3Decoder
-
-    dec = Lc3Decoder(1, cfg.n_ms, cfg.fs)
-    return np.stack([dec.decode_frame(16, 0, bytes(f)) for f in frames])
-
-
 def cuda_ms(fn, reps: int = REPS) -> float:
     """Median device time of fn() in ms, CUDA events around each call."""
     import torch
@@ -123,6 +109,80 @@ def cuda_ms(fn, reps: int = REPS) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def encode_times(enc, pcm_host: np.ndarray, pcm_dev, reps: int = REPS) -> dict:
+    """The encode DSP step and the whole encode, alternated rep by rep so that
+    both see the same host. Per rep, in ms: the DSP step by CUDA events
+    (dsp_event), the host wall until its last launch is queued (dsp_issue)
+    and until it is done (dsp_wall), and the issuing thread's CPU time
+    (dsp_cpu); then the whole encode's host wall (enc_wall) and the main
+    thread's CPU time (enc_cpu; the packer's worker threads not counted).
+    A host thread that is descheduled shows as wall above CPU time; a slower
+    host core as CPU time that moves with the wall. Each rep first times a
+    fixed pure-Python loop (probe): it moves with the steps if the host's
+    speed is what moves them."""
+    import torch
+
+    for _ in range(3):
+        enc.encode_fields_tensor(pcm_dev)
+        enc.encode(pcm_host)
+    torch.cuda.synchronize()
+    out = {k: [] for k in ("probe", "dsp_event", "dsp_issue", "dsp_wall", "dsp_cpu",
+                           "enc_wall", "enc_cpu")}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sum(i * i for i in range(50_000))
+        out["probe"].append((time.perf_counter() - t0) * 1e3)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        w0, c0 = time.perf_counter(), time.thread_time()
+        a.record()
+        enc.encode_fields_tensor(pcm_dev)
+        b.record()
+        w_issue = time.perf_counter()
+        b.synchronize()
+        w1, c1 = time.perf_counter(), time.thread_time()
+        enc.encode(pcm_host)
+        w2, c2 = time.perf_counter(), time.thread_time()
+        for k, v in (("dsp_event", a.elapsed_time(b)), ("dsp_issue", (w_issue - w0) * 1e3),
+                     ("dsp_wall", (w1 - w0) * 1e3), ("dsp_cpu", (c1 - c0) * 1e3),
+                     ("enc_wall", (w2 - w1) * 1e3), ("enc_cpu", (c2 - c1) * 1e3)):
+            out[k].append(v)
+    return out
+
+
+def spread(ms) -> str:
+    """median [min-max] of a list of ms."""
+    return f"{float(np.median(ms)):.4f} [{min(ms):.4f}-{max(ms):.4f}]"
+
+
+def encode_times_line(et: dict) -> str:
+    """The reps of encode_times summarised: each wall or event time as
+    median [min-max]; the host part of the whole encode (its wall less the
+    same rep's DSP step); each thread's CPU time over its wall, summed over
+    the reps (the thread clock may tick coarsely); and how the probe
+    correlates with the two steps over the reps."""
+    v = {k: np.asarray(x) for k, x in et.items()}
+    corr = lambda k: float(np.corrcoef(v["probe"], v[k])[0, 1])
+    return "; ".join(
+        [f"{k} {spread(v[k])}" for k in ("probe", "dsp_event", "dsp_issue", "dsp_wall",
+                                         "enc_wall")]
+        + [f"enc_wall - dsp_wall {spread(v['enc_wall'] - v['dsp_wall'])}",
+           f"CPU/wall dsp {v['dsp_cpu'].sum() / v['dsp_wall'].sum():.3f}, "
+           f"enc {v['enc_cpu'].sum() / v['enc_wall'].sum():.3f}",
+           f"corr(probe, dsp_wall) {corr('dsp_wall'):.2f}, "
+           f"corr(probe, enc_wall) {corr('enc_wall'):.2f}"])
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least time in ms, what sets it) on the H100's published peaks."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def nbytes_of(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def ltpf_stress(p, S: int, seed: int, device):
@@ -149,6 +209,38 @@ def ltpf_stress(p, S: int, seed: int, device):
     return st, x, active, pitch
 
 
+def capture_kernel_inputs(enc, pcm):
+    """Run one encode step and keep the arguments each encoder kernel gets."""
+    from lc3jax_torch.dsp import bitmodel_kernel, sns_kernel, tns_enc_kernel
+
+    seen = {}
+    spies = [(sns_kernel, "sns_pvq"), (tns_enc_kernel, "tns_autocorr"),
+             (tns_enc_kernel, "tns_analysis"), (bitmodel_kernel, "bitmodel_table_part")]
+    originals = [getattr(m, n) for m, n in spies]
+    for (m, n), orig in zip(spies, originals):
+        def spy(*a, _n=n, _orig=orig):
+            seen.setdefault(_n, a)
+            return _orig(*a)
+        setattr(m, n, spy)
+    try:
+        enc.encode_fields_tensor(pcm)
+    finally:
+        for (m, n), orig in zip(spies, originals):
+            setattr(m, n, orig)
+    return seen
+
+
+def equal_outputs(name: str, a, b) -> None:
+    import torch
+
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+            bad = (x != y).reshape(x.shape[0], -1).any(1).nonzero().flatten()[:8].tolist()
+            raise AssertionError(f"{name} kernel != plain (output {i}), streams {bad}")
+
+
 def main() -> int:
     import torch
 
@@ -156,18 +248,23 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from lc3jax.config import FrameDuration, Lc3Config
     from lc3jax_torch import _build
     from lc3jax_torch.coding import device as cdev
-    from lc3jax_torch.coding import parse_kernel
-    from lc3jax_torch.convert import decoder_tables
+    from lc3jax_torch.coding import host_pack, parse_kernel
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.convert import decoder_tables, encoder_tables
+    from lc3jax_torch.dsp import bitmodel_kernel, ltpf_kernel, sns_kernel, tns_enc_kernel, tns_kernel
     from lc3jax_torch.dsp import decoder as D
-    from lc3jax_torch.dsp import ltpf_kernel, tns_kernel
+    from lc3jax_torch.dsp.encoder import tuple_symbols
     from lc3jax_torch.dsp.ltpf import ltpf_pass_args
-    from lc3jax_torch.serving import BatchDecoder
+    from lc3jax_torch.serving import BatchDecoder, BatchEncoder
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    gold = ROOT / "tests" / "goldens"
+    bench = np.load(gold / "torch_bench_content.npz")
+    corpus = np.load(gold / "corpus.npz")
+    s50 = np.load(gold / "stream50.npz")
 
     # ---- 1. card
     card = card_line()
@@ -178,25 +275,28 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     _build.lib()
-    log("build", f"{_build.library_path().name} in {time.perf_counter() - t0:.1f} s "
-                 f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
+    t1 = time.perf_counter()
+    host_pack.load()
+    log("build", f"{_build.library_path().name} in {t1 - t0:.1f} s (nvcc "
+                 f"{_build.build_seconds if _build.build_seconds is not None else 'cached'}); "
+                 f"host packer {host_pack.library_path().name} in {time.perf_counter() - t1:.1f} s")
 
     cfg = Lc3Config.new(48000, FrameDuration.MS10)
     nbits = NBYTES * 8
     tab = decoder_tables(cfg, nbits, dev)
-    rng = np.random.default_rng(0)
+    tile = np.arange(S_MAIN) % 4
 
-    # ---- 3. kernels against their plain versions, main-path shapes
-    one = encode_streams(cfg, content(cfg, 1, rng), NBYTES)[:, 0]  # bench.py's 4 frames
+    # ---- 3. decode kernels against their plain versions, main-path shapes
+    one = bench["encoded"][:, 0]  # the first frame of each content
     garbage = np.random.default_rng(1).integers(0, 256, (S_MAIN, NBYTES), dtype=np.uint8)
-    mixed = np.where((np.arange(S_MAIN) % 2 == 0)[:, None], one[np.arange(S_MAIN) % 4], garbage)
+    mixed = np.where((np.arange(S_MAIN) % 2 == 0)[:, None], one[tile], garbage)
     payloads = torch.as_tensor(mixed, device=dev)
     fk = cdev.device_parse(cfg, NBYTES, payloads)
-    fp = cdev.device_parse_plain(cfg, NBYTES, payloads)
+    fp_ = cdev.device_parse_plain(cfg, NBYTES, payloads)
     torch.cuda.synchronize()
     errs = {"parse": 0.0}
     for f in dataclasses.fields(fk):
-        a, b = getattr(fk, f.name), getattr(fp, f.name)
+        a, b = getattr(fk, f.name), getattr(fp_, f.name)
         diff = (a.to(torch.int64) - b.to(torch.int64)).abs()
         errs["parse"] = max(errs["parse"], float(diff.max()))
         if a.dtype != b.dtype or bool(diff.any()):
@@ -214,9 +314,9 @@ def main() -> int:
     tns_args = (tab, x_t, bw_t, ro_t, ri_t)
     yk = tns_kernel.tns_synthesis(*tns_args)
     yp = tns_kernel.tns_synthesis_plain(*tns_args)
-    errs["tns"] = float((yk - yp).abs().max())
+    errs["tns_synthesis"] = float((yk - yp).abs().max())
     if not torch.equal(yk, yp):
-        raise AssertionError(f"tns kernel != plain, max abs {errs['tns']}")
+        raise AssertionError(f"tns kernel != plain, max abs {errs['tns_synthesis']}")
 
     st, x_l, act_l, pi_l = ltpf_stress(tab.p, S_MAIN, 7, dev)
     lt_args = ltpf_pass_args(tab, st, x_l, act_l, pi_l)[0]
@@ -226,29 +326,68 @@ def main() -> int:
     if errs["ltpf"] > 1e-3:
         raise AssertionError(f"ltpf kernel vs plain: max abs {errs['ltpf']} > 1e-3")
     log("kernels", f"parse: 19 fields equal ({n_bad}/{S_MAIN} bad frames); "
-                   f"tns: equal (max abs {errs['tns']}); ltpf: max abs {errs['ltpf']} (<= 1e-3)")
+                   f"tns: equal (max abs {errs['tns_synthesis']}); "
+                   f"ltpf: max abs {errs['ltpf']} (<= 1e-3)")
 
-    # ---- 4. the slice: BatchDecoder over T frames, S = 2048
-    signals = content(cfg, T_FRAMES, rng)
-    frames = encode_streams(cfg, signals, NBYTES)  # [4, T, nbytes]
-    frames[2, 5] = 255  # a corrupt frame: PLC on every stream of content 2
-    want = [oracle_decode(cfg, frames[c]) for c in range(4)]
+    # ---- 4. encoder kernels against their plain versions
+    pcm_in = bench["pcm_in"]  # [4, T, nf]
+    enc_probe = BatchEncoder(cfg, S_MAIN, NBYTES, device="cuda")
+    real = capture_kernel_inputs(enc_probe, torch.as_tensor(pcm_in[tile, 0], device=dev))
+    g = np.random.default_rng(3)
+    rnd = torch.as_tensor((g.standard_normal((S_MAIN, cfg.ne)) * 10 ** g.uniform(0, 3, (S_MAIN, 1)))
+                          .astype(np.float32), device=dev)
+    etab = encoder_tables(cfg, nbits, dev)
+    i32 = lambda a: torch.as_tensor(a.astype(np.int32), device=dev)
+    bw_r = i32(g.integers(0, 5, S_MAIN))
+    rci_r = i32(g.integers(0, 17, (S_MAIN, 16)))
+    ro_r = i32(g.integers(0, 9, (S_MAIN, 2)))
+    nf_r = torch.where(bw_r >= 3, 2, 1).to(torch.int32)
+    mag = g.standard_normal((S_MAIN, cfg.ne)) * 3
+    xq_r = np.clip(mag.astype(np.int64) * (1 << g.integers(0, 15, (S_MAIN, cfg.ne))) // 8,
+                   -32768, 32767).astype(np.int32)
+    ts = tuple_symbols(torch.as_tensor(xq_r, device=dev))
+    random_args = {
+        "sns_pvq": (torch.as_tensor((g.standard_normal((S_MAIN, 16)) * 3).astype(np.float32),
+                                    device=dev),),
+        "tns_autocorr": (rnd, etab.tns_sub[bw_r]),
+        "tns_analysis": (rnd, etab.tns_bounds[bw_r], ro_r, nf_r, etab.tns_sin[rci_r]),
+        "bitmodel_table_part": (ts["c"], ts["g"], ts["sym"], 512, cfg.ne, ts["lastnz"]),
+    }
+    enc_fns = {
+        "sns_pvq": (sns_kernel.sns_pvq, sns_kernel.sns_pvq_plain),
+        "tns_autocorr": (tns_enc_kernel.tns_autocorr, tns_enc_kernel.tns_autocorr_plain),
+        "tns_analysis": (tns_enc_kernel.tns_analysis, tns_enc_kernel.tns_analysis_plain),
+        "bitmodel_table_part": (bitmodel_kernel.bitmodel_table_part,
+                                bitmodel_kernel.bitmodel_table_part_plain),
+    }
+    lines = []
+    for name, (kern, plain) in enc_fns.items():
+        for label, args in (("random", random_args[name]), ("bench", real[name])):
+            equal_outputs(f"{name} ({label})", kern(*args), plain(*args))
+        errs[name] = 0.0
+        lines.append(f"{name}: equal")
+    torch.cuda.synchronize()
+    log("enc-kernels", "; ".join(lines) + " (random and bench inputs, S=2048)")
+
+    # ---- 5. the decode slice: BatchDecoder over T frames, S = 2048
+    frames = bench["frames"]  # [4, T, nbytes], frame 5 of content 2 corrupt
+    want = bench["pcm_out"][:, :T_FRAMES]
     dec = BatchDecoder(cfg, S_MAIN, NBYTES, device="cuda")
-    counters = (parse_kernel, tns_kernel, ltpf_kernel)
-    for m in counters:
+    dec_counters = (parse_kernel, tns_kernel, ltpf_kernel)
+    for m in dec_counters:
         m.launches = 0
-    pcm = [dec.decode(frames[np.arange(S_MAIN) % 4, f]) for f in range(T_FRAMES)]
-    launches = {"parse": parse_kernel.launches, "tns": tns_kernel.launches,
+    pcm = [dec.decode(frames[tile, f]) for f in range(T_FRAMES)]
+    launches = {"parse": parse_kernel.launches, "tns_synthesis": tns_kernel.launches,
                 "ltpf": ltpf_kernel.launches}
     pcm = np.stack(pcm, 1)  # [S, T, nf]
     if any(n != T_FRAMES for n in launches.values()):
-        raise AssertionError(f"launch counts {launches} != {T_FRAMES} steps")
+        raise AssertionError(f"decode launch counts {launches} != {T_FRAMES} steps")
     if not all(np.array_equal(pcm[s], pcm[s % 4]) for s in range(S_MAIN)):
         raise AssertionError("streams with equal input decoded differently")
     # one envelope over the four distinct streams: alone, the quiet noise
     # stream (1500 rms) drops below 100 dB on a single 1-LSB flip in T frames
     per = [envelope(pcm[c], want[c]) for c in range(4)]
-    lines = [check_envelope("contents 0-3", pcm[:4], np.stack(want))] + [
+    lines = [check_envelope("contents 0-3", pcm[:4], want)] + [
         f"content {c}: max {m} LSB, {int((pcm[c] != want[c]).sum())} flips, {snr:.1f} dB"
         for c, (m, snr) in enumerate(per)]
     if dec.metrics.plc_frames != S_MAIN // 4:
@@ -256,51 +395,158 @@ def main() -> int:
     log("slice", f"S={S_MAIN} T={T_FRAMES}: launches {launches}; plc_rate "
                  f"{dec.metrics.plc_rate:.6f}; " + "; ".join(lines))
 
-    # ---- 5. corpus and stream50 on the card
-    gold = ROOT / "tests" / "goldens"
-    corpus = np.load(gold / "corpus.npz")
-    s50 = np.load(gold / "stream50.npz")
-    runs = [(k, *k.split("_"), corpus[k + "_payloads"], corpus[k + "_pcm_out"]) for k in CORPUS]
-    runs.append(("stream50", "48000", "10ms", "120", s50["payloads"], s50["pcm_out"]))
+    # ---- 6. decode corpus and stream50 on the card
+    runs = [(k, k.split("_"), corpus[k + "_pcm_in"], corpus[k + "_payloads"],
+             corpus[k + "_pcm_out"]) for k in CORPUS]
+    runs.append(("stream50", ["48000", "10ms"], s50["pcm_in"], s50["payloads"], s50["pcm_out"]))
+    geo = lambda parts: Lc3Config.new(int(parts[0]), FrameDuration.MS7P5 if parts[1] == "7.5ms"
+                                      else FrameDuration.MS10)
     lines = []
-    for name, fs, dur, _, pl, want_pcm in runs:
-        c = Lc3Config.new(int(fs), FrameDuration.MS7P5 if dur == "7.5ms" else FrameDuration.MS10)
-        d = BatchDecoder(c, 1, pl.shape[1], device="cuda")
+    for name, parts, _, pl, want_pcm in runs:
+        d = BatchDecoder(geo(parts), 1, pl.shape[1], device="cuda")
         out = np.stack([d.decode(pl[f : f + 1])[0] for f in range(pl.shape[0])])
         lines.append(check_envelope(name, out, want_pcm))
     log("corpus", "; ".join(lines))
 
-    # ---- 6. times (CUDA events, median of REPS after warm-up)
-    pay = torch.as_tensor(frames[np.arange(S_MAIN) % 4, 0], device=dev)
-    step_ms = cuda_ms(lambda: dec.decode_tensor(pay))
+    # ---- 7. the encode slice: BatchEncoder over T frames, S = 2048
+    enc = BatchEncoder(cfg, S_MAIN, NBYTES, device="cuda")
+    enc_counters = {"sns_pvq": lambda: sns_kernel.launches,
+                    "tns_autocorr": lambda: tns_enc_kernel.autocorr_launches,
+                    "tns_analysis": lambda: tns_enc_kernel.analysis_launches,
+                    "bitmodel_table_part": lambda: bitmodel_kernel.launches}
+    sns_kernel.launches = bitmodel_kernel.launches = 0
+    tns_enc_kernel.autocorr_launches = tns_enc_kernel.analysis_launches = 0
+    out = [enc.encode(pcm_in[tile, f]) for f in range(T_FRAMES)]
+    for k, read in enc_counters.items():
+        launches[k] = read()
+    out = np.stack(out, 1)  # [S, T, nbytes]
+    expect = {k: (2 if k == "bitmodel_table_part" else 1) * T_FRAMES for k in enc_counters}
+    if any(launches[k] != n for k, n in expect.items()):
+        raise AssertionError(f"encode launch counts { {k: launches[k] for k in expect} } "
+                             f"!= {expect}")
+    wrong = [s for s in range(S_MAIN) if not np.array_equal(out[s], bench["encoded"][s % 4, :T_FRAMES])]
+    if wrong:
+        f_bad = [int(np.flatnonzero((out[s] != bench["encoded"][s % 4, :T_FRAMES]).any(1))[0])
+                 for s in wrong[:4]]
+        raise AssertionError(f"encode: {len(wrong)}/{S_MAIN} streams differ from the oracle "
+                             f"(streams {wrong[:4]}, first bad frames {f_bad})")
+    log("encode", f"S={S_MAIN} T={T_FRAMES}: all {S_MAIN * T_FRAMES} frames equal the oracle's; "
+                  f"launches { {k: launches[k] for k in expect} }; "
+                  f"frames_encoded {enc.metrics.frames_encoded}")
+
+    # ---- 8. encode corpus and stream50 on the card, S = 1
+    lines = []
+    for name, parts, pcm_c, pl, _ in runs:
+        e = BatchEncoder(geo(parts), 1, pl.shape[1], device="cuda")
+        got = np.stack([e.encode(pcm_c[f : f + 1])[0] for f in range(pcm_c.shape[0])])
+        bad = np.flatnonzero((got != pl).any(1))
+        if bad.size:
+            raise AssertionError(f"encode-corpus {name}: {bad.size}/{len(pl)} frames differ "
+                                 f"from the oracle's (first {bad[:8].tolist()})")
+        lines.append(f"{name}: {len(pl)}/{len(pl)} equal")
+    log("encode-corpus", "; ".join(lines))
+
+    # ---- 9. times (CUDA events, median of REPS after warm-up)
+    pay = torch.as_tensor(frames[tile, 0], device=dev)
+    dec_ms = cuda_ms(lambda: dec.decode_tensor(pay))
+    pcm0 = torch.as_tensor(pcm_in[tile, 0], device=dev)
+    et = encode_times(enc, pcm_in[tile, 0], pcm0)
+    enc_ms, enc_wall = float(np.median(et["dsp_event"])), float(np.median(et["enc_wall"]))
     fr = cdev.device_parse(cfg, NBYTES, pay)
     real_tns = (tab, D.pre_tns(tab, fr), fr.bandwidth, fr.rc_order, fr.rc_i)
-    times = {
-        "parse": (cuda_ms(lambda: parse_kernel.parse_frames_cuda(cfg, NBYTES, pay)),
-                  cuda_ms(lambda: cdev.device_parse_plain(cfg, NBYTES, pay))),
-        "tns": (cuda_ms(lambda: tns_kernel.tns_synthesis(*real_tns)),
-                cuda_ms(lambda: tns_kernel.tns_synthesis_plain(*real_tns))),
-        "ltpf": (cuda_ms(lambda: ltpf_kernel.ltpf_both_passes(*lt_args)),
-                 cuda_ms(lambda: ltpf_kernel.ltpf_both_passes_plain(*lt_args))),
+    kargs = {
+        "parse": ((cfg, NBYTES, pay), parse_kernel.parse_frames_cuda, cdev.device_parse_plain),
+        "tns_synthesis": (real_tns, tns_kernel.tns_synthesis, tns_kernel.tns_synthesis_plain),
+        "ltpf": (lt_args, ltpf_kernel.ltpf_both_passes, ltpf_kernel.ltpf_both_passes_plain),
     }
-    rt = S_MAIN * (cfg.nf / cfg.fs) / (step_ms / 1e3)
-    log("times", f"{card}: fused step {step_ms:.4f} ms = {rt:.1f}x realtime "
+    for name, (kern, plain) in enc_fns.items():
+        kargs[name] = (real[name], kern, plain)
+    times = {k: (cuda_ms(lambda: kern(*a)), cuda_ms(lambda: plain(*a)))
+             for k, (a, kern, plain) in kargs.items()}
+
+    # bounds, from this run's inputs; library calls where one computes the same
+    bounds = {}
+    p_out = cdev.device_parse_plain(cfg, NBYTES, pay)
+    bounds["parse"] = bound(nbytes_of(pay, *[getattr(p_out, f.name)
+                                             for f in dataclasses.fields(p_out)]), 0.0)
+    xs, bw_s, ro_s, ri_s = real_tns[1:]
+    # a lattice line of order k: 2k multiplies and 2k adds
+    b4 = tab.tns_bounds[bw_s.long()].long()
+    work = ((b4[:, 1] - b4[:, 0]) * 4 * ro_s[:, 0] + (b4[:, 3] - b4[:, 2]) * 4 * ro_s[:, 1])
+    bounds["tns_synthesis"] = bound(2 * nbytes_of(xs) + nbytes_of(bw_s, ro_s, ri_s),
+                                    float(work.sum()))
+    lt_in = [a for a in lt_args if hasattr(a, "element_size")]
+    bounds["ltpf"] = bound(nbytes_of(*lt_in) + 2 * nbytes_of(x_l),
+                           2.0 * 2 * (tab.p.l_num + tab.p.l_den + 2) * x_l.numel())
+    # PVQ: ~110 operations a greedy round over 16 lanes; the shape-3 rounds
+    # this data needs, 2 for shape 2, at most 10 for shape 1; ~200 for the
+    # projection and normalisations, 14 x 48 for the shape/gain search
+    t2 = real["sns_pvq"][0]
+    ax = t2.abs()
+    k0 = torch.floor(ax * (5.0 / ax.sum(1, keepdim=True))).sum(1)
+    rounds = (6 - k0).clamp(min=0) + 2 + 10
+    bounds["sns_pvq"] = bound(nbytes_of(t2) + S_MAIN * (16 * 12 + 12),
+                              float((110 * rounds + 200 + 14 * 48).sum()))
+    xa, suba = real["tns_autocorr"]
+    lo, hi = suba[..., 0].long(), suba[..., 1].long()
+    terms = sum(torch.clamp_min(hi - lo - k, 0).sum() for k in range(9))
+    bounds["tns_autocorr"] = bound(nbytes_of(xa, suba) + S_MAIN * 54 * 4, 2.0 * float(terms))
+    xn, bnd, ro_e, nf_e, rcq = real["tns_analysis"]
+    o2 = torch.stack([ro_e[:, 0], torch.where(nf_e > 1, ro_e[:, 1], 0)], 1).long()
+    bl = bnd.reshape(-1, 4).long()
+    work = ((bl[:, 1] - bl[:, 0]) * 4 * o2[:, 0] + (bl[:, 3] - bl[:, 2]) * 4 * o2[:, 1]).sum()
+    bounds["tns_analysis"] = bound(2 * nbytes_of(xn) + nbytes_of(bnd, ro_e, nf_e, rcq),
+                                   float(work))
+    # the bit model reads c, g and sym of each stream's coded tuples only
+    # (those below (lastnz + 1) >> 1), lastnz and the two tables, and writes
+    # every tuple
+    cb, gb, sb, _, _, lb = real["bitmodel_table_part"]
+    coded = float(torch.clamp_max((lb.long() + 1) >> 1, cb.shape[1]).sum())
+    per_tuple = cb.element_size() + gb.element_size() + sb.element_size()
+    bounds["bitmodel_table_part"] = bound(
+        coded * per_tuple + nbytes_of(lb, *bitmodel_kernel.tables(dev)) + cb.numel() * 4, 0.0)
+    # TNS autocorrelation as one batched matmul of the masked windows against
+    # their nine shifts (the yardstick; the port never calls it)
+    Lw = int((hi - lo).max())
+    pos = lo.reshape(S_MAIN, 6, 1) + torch.arange(Lw + 8, device=dev)
+    xw = xa.gather(1, pos.clamp(max=cfg.ne - 1).reshape(S_MAIN, -1)).reshape(S_MAIN * 6, Lw + 8)
+    xw = torch.where(pos.reshape(S_MAIN * 6, -1) < hi.reshape(-1, 1), xw, 0.0)
+    lagged = xw.unfold(1, Lw, 1)[:, :9].transpose(1, 2).contiguous()  # [S*6, Lw, 9]
+    head = xw[:, None, :Lw].contiguous()
+    library = {k: None for k in times}
+    library["tns_autocorr"] = cuda_ms(lambda: torch.bmm(head, lagged))
+
+    rt = lambda ms: S_MAIN * (cfg.nf / cfg.fs) / (ms / 1e3)
+    log("encode-times", f"{card}, S={S_MAIN}, {REPS} reps alternated, median [min-max] ms: "
+                        + encode_times_line(et))
+    log("times", f"{card}: decode step {dec_ms:.4f} ms = {rt(dec_ms):.1f}x realtime; "
+                 f"encode DSP step {enc_ms:.4f} ms = {rt(enc_ms):.1f}x realtime; "
+                 f"encode with host pack {enc_wall:.4f} ms wall = {rt(enc_wall):.1f}x realtime "
                  f"(S={S_MAIN}, 48k/10ms/150B); " + "; ".join(
-                     f"{k} kernel {a:.4f} ms vs plain {b:.4f} ms" for k, (a, b) in times.items()))
+                     f"{k} kernel {a:.4f} ms vs plain {b:.4f} ms, bound {bounds[k][0]:.5f} ms "
+                     f"({bounds[k][1]})" + (f", library {library[k]:.4f} ms"
+                                            if library[k] is not None else "")
+                     for k, (a, b) in times.items()))
     log("done", f"{time.perf_counter() - t_start:.1f} s")
 
     src = "lc3jax_torch/csrc/"
+    meta = {
+        "parse": ("parse.cu", "lc3jax/coding/pallas_parse.py:597"),
+        "tns_synthesis": ("tns_synthesis.cu", "lc3jax/dsp/pallas_tns.py:226"),
+        "ltpf": ("ltpf.cu", "lc3jax/dsp/pallas_ltpf.py:122"),
+        "sns_pvq": ("sns_pvq.cu", "lc3jax/dsp/pallas_sns.py:199"),
+        "tns_autocorr": ("tns_autocorr.cu", "lc3jax/dsp/pallas_tns.py:158"),
+        "tns_analysis": ("tns_analysis.cu", "lc3jax/dsp/pallas_tns.py:190"),
+        "bitmodel_table_part": ("bitmodel.cu", "lc3jax/dsp/pallas_bitmodel.py:235"),
+    }
+    names = {"ltpf": "ltpf_both_passes"}
     kernels = [
-        {"name": "parse", "route": "cuda", "source": src + "parse.cu",
-         "replaces": "lc3jax/coding/pallas_parse.py:597"},
-        {"name": "tns_synthesis", "route": "cuda", "source": src + "tns_synthesis.cu",
-         "replaces": "lc3jax/dsp/pallas_tns.py:226"},
-        {"name": "ltpf_both_passes", "route": "cuda", "source": src + "ltpf.cu",
-         "replaces": "lc3jax/dsp/pallas_ltpf.py:122"},
+        {"name": names.get(k, k), "route": "cuda", "source": src + f, "replaces": r,
+         "launches": launches[k], "max_abs_err": errs[k], "ms": times[k][0],
+         "plain_ms": times[k][1], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+         "library_ms": library[k]}
+        for k, (f, r) in meta.items()
     ]
-    for k, key in zip(kernels, ("parse", "tns", "ltpf")):
-        k.update(launches=launches[key], max_abs_err=errs[key],
-                 ms=times[key][0], plain_ms=times[key][1])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

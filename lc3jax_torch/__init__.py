@@ -1,27 +1,33 @@
-"""lc3jax_torch: the LC3 batched decoder in PyTorch, with CUDA kernels.
+"""lc3jax_torch: the LC3 batched decoder and encoder in PyTorch, with CUDA
+kernels.
 
 A port of the `lc3jax` package (JAX on a TPU) to PyTorch on an NVIDIA H100.
-This slice runs the fused bytes -> PCM decode of
-`lc3jax.serving.BatchDecoder(device_parse=True)`:
+Two paths run on the card:
 
-- `coding.device.device_parse`: the range decoder (kernel `csrc/parse.cu`);
-- `dsp.decoder.decode_step`: residual, noise fill, global gain, TNS (kernel
+- decode, raw frame bytes -> PCM (`serving.BatchDecoder`, the fused mode of
+  `lc3jax.serving.BatchDecoder(device_parse=True)`): the range decoder
+  (kernel `csrc/parse.cu`), the spectral DSP, TNS (kernel
   `csrc/tns_synthesis.cu`), SNS, PLC, the IMDCT matmul, the LTPF (kernel
-  `csrc/ltpf.cu`) and output scaling;
-- `serving.BatchDecoder`, the entry point.
+  `csrc/ltpf.cu`);
+- encode, PCM -> fields -> bytes (`serving.BatchEncoder`, the host-pack
+  mode of `lc3jax.serving.BatchEncoder`): `dsp.encoder.encode_step` on the
+  card, with the SNS PVQ search (`csrc/sns_pvq.cu`), the TNS
+  autocorrelation and analysis lattice (`csrc/tns_autocorr.cu`,
+  `csrc/tns_analysis.cu`) and the bit model (`csrc/bitmodel.cu`) as
+  kernels, then the repo's C++ packer on the host (`coding.host_pack`).
 
 Every kernel has a plain PyTorch version beside it; a wrapper takes it only
 for a tensor on the CPU, and for a CUDA tensor launches the kernel or
-raises. Kernels are built with nvcc at first use (`_build.py`).
+raises. Kernels are built with nvcc at first use (`_build.py`). The entry
+points run on the card unless the caller passes `device="cpu"`.
 
-The package imports torch and never jax. It reuses, without copying, the
-framework-free numpy modules of `lc3jax`: `lc3jax.config`, `lc3jax.tables`
-(with `data/tables.npz`), `lc3jax.dsp.params.decoder_params`, `lc3jax.ref`
-(`ref.fp.powf` for the global-gain table) and `lc3jax.metrics`. None of
-them imports jax: `lc3jax/__init__.py` imports only `config`, and
-`lc3jax/dsp/__init__.py` is a docstring.
+The package imports torch and never jax, nor anything of `lc3jax`: it keeps
+its own copies of the configuration (`config.py`), the spec tables
+(`tables.py`, `data/tables.npz`), the decoder constants (`dsp/params.py`),
+the f32 helpers (`fp.py`), glibc's exp2f table (`data/exp2f.npz`) and the
+serving counters (`metrics.py`).
 """
 
-from lc3jax.config import FrameDuration, Lc3Config
+from .config import FrameDuration, Lc3Config
 
 __all__ = ["FrameDuration", "Lc3Config"]

@@ -1,16 +1,18 @@
 """Builds the port's CUDA kernels with nvcc and loads them through ctypes.
 
-Every `csrc/*.cu` file is compiled by hand into one shared library with a
-plain C interface (no PyTorch headers: such a file builds in seconds, one
-that includes them in minutes):
+Every `csrc/*.cu` file is compiled by hand, one nvcc per source and all of
+them at once, then linked into one shared library with a plain C interface
+(no PyTorch headers: such a file builds in seconds, one that includes them
+in minutes):
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -o build/lc3jax_torch/liblc3jax_torch_<hash>.so
-         lc3jax_torch/csrc/*.cu
+         -Xcompiler -fPIC -c -o <name>.o lc3jax_torch/csrc/<name>.cu   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/lc3jax_torch/liblc3jax_torch_<hash>.so *.o
 
 `--fmad=false` keeps every float multiply and add separately rounded, so the
-TNS and LTPF kernels equal their plain PyTorch versions bit for bit (eager
-PyTorch rounds once per op and never contracts to fma).
+TNS, LTPF and SNS kernels equal their plain PyTorch versions bit for bit
+(eager PyTorch rounds once per op and never contracts to fma).
 
 The library is built at first use into `build/lc3jax_torch/` at the repo
 root, keyed by a hash of the sources and the flags, so an edited source
@@ -36,10 +38,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "lc3jax_torch"
 CUDA_DEFAULT = Path("/usr/local/cuda")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C signatures: name -> argtypes (every entry returns int, a cudaError_t)
@@ -47,6 +47,10 @@ SIGNATURES = {
     "lc3t_tns_synthesis": [_PTR] * 5 + [_INT] * 2 + [_PTR],
     "lc3t_ltpf_both_passes": [_PTR] * 15 + [_INT] * 7 + [_PTR],
     "lc3t_parse": [_PTR] * 22 + [_INT] * 5 + [_PTR],
+    "lc3t_sns_pvq": [_PTR] * 8 + [_INT] + [_PTR],
+    "lc3t_tns_autocorr": [_PTR] * 3 + [_INT] * 2 + [_PTR],
+    "lc3t_tns_analysis": [_PTR] * 5 + [_INT] * 2 + [_PTR],
+    "lc3t_bitmodel": [_PTR] * 7 + [_INT] * 4 + [_PTR],
 }
 
 _lib = None
@@ -88,14 +92,25 @@ def build() -> Path:
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    objs = [out.with_name(f"{out.stem}.{src.stem}.{os.getpid()}.o")
+            for src in sorted(CSRC.glob("*.cu"))]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"lc3jax_torch: nvcc failed with code {res.returncode}:\n"
-            f"{' '.join(cmd)}\n{res.stdout}{res.stderr}"
-        )
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                for o, src in zip(objs, sorted(CSRC.glob("*.cu")))]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    results = [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(compiles, procs)]
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    if all(rc == 0 for _, _, rc in results):
+        res = subprocess.run(link, capture_output=True, text=True)
+        results.append((link, res.stdout + res.stderr, res.returncode))
+    for o in objs:
+        o.unlink(missing_ok=True)
+    for cmd, text, rc in results:
+        if rc != 0:
+            raise RuntimeError(
+                f"lc3jax_torch: nvcc failed with code {rc}:\n{' '.join(cmd)}\n{text}"
+            )
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

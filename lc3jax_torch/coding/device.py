@@ -25,8 +25,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from lc3jax import tables as T
-from lc3jax.config import FrameDuration, Lc3Config
+from .. import tables as T
+from ..config import FrameDuration, Lc3Config
 
 from ..dsp.decoder import ParsedFrames
 

@@ -13,10 +13,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from lc3jax import tables as T
-from lc3jax.config import FrameDuration, Lc3Config
-
 from .. import _build
+from .. import tables as T
+from ..config import FrameDuration, Lc3Config
 from ..dsp.decoder import BOOL_FRAME_FIELDS, ParsedFrames
 
 launches = 0  # kernel launches since the last reset

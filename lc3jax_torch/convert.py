@@ -1,15 +1,17 @@
 """Carries the codec's constants and state between numpy and torch.
 
 The decoder's "weights" are the static per-config tables of
-`lc3jax.dsp.params.decoder_params` (numpy): the DCT-IV matrix, the window,
+`dsp.params.decoder_params` (numpy): the DCT-IV matrix, the window,
 the LCG jump tables, the LTPF taps, the band maps, plus the 256-entry
 global-gain table. `decoder_tables` turns them into device tensors once per
-(config, frame bits, device).
+(config, frame bits, device); `encoder_tables` does the same for the
+encoder's constants (`dsp.encoder.encoder_params`, the quantizer's gain
+table, the LTPF resampler).
 
 The state and frame converters take numpy arrays (or anything
 `np.asarray` accepts) laid out like the leaves of the JAX pytrees
-`DecoderState`, `LtpfState` and `ParsedFrames`, so the same inputs can be
-handed to both packages.
+`DecoderState`, `LtpfState`, `ParsedFrames`, `EncoderState` and
+`LtpfEncState`, so the same inputs can be handed to both packages.
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from lc3jax import tables as T
-from lc3jax.config import Lc3Config
-from lc3jax.dsp.params import DecoderParams, decoder_params
-
+from . import fp
+from . import tables as T
+from .config import Lc3Config
 from .dsp.decoder import BOOL_FRAME_FIELDS, DecoderState, ParsedFrames
+from .dsp.encoder import EncoderParams, EncoderState, encoder_params, gain_table
+from .dsp.encoder_ltpf import LtpfEncConsts, LtpfEncState, ltpf_enc_consts
 from .dsp.ltpf import LtpfState, _gains
+from .dsp.params import DecoderParams, decoder_params
 
 F32 = np.float32
 
@@ -62,8 +66,6 @@ class DecoderTables:
 
 def global_gain_table(cfg: Lc3Config, nbits: int) -> np.ndarray:
     """Exact 10^((i + gg_off)/28) for the 256 gain indices (glibc powf)."""
-    from lc3jax.ref import fp
-
     fs = cfg.fs_ind + 1
     gg_off = -min(nbits // (10 * fs), 115) - 105 - 5 * fs
     return np.array(
@@ -171,3 +173,126 @@ def decoder_state_to_numpy(st: DecoderState) -> dict:
     out["ltpf"] = {f.name: getattr(st.ltpf, f.name).cpu().numpy()
                    for f in dataclasses.fields(LtpfState)}
     return out
+
+
+# ----------------------------------------------------------------- encoder
+
+
+@dataclass(frozen=True)
+class EncoderTables:
+    """Device-resident encoder constants for one (config, frame bits, device)."""
+
+    p: EncoderParams  # the numpy source (static ints and shapes)
+    window: torch.Tensor  # f32 [2nf]
+    band_lines: torch.Tensor  # int64 [nb, maxw] line index of each band term (0 past the band)
+    band_valid: torch.Tensor  # bool [nb, maxw]
+    band_width: torch.Tensor  # f32 [nb]
+    band_of_line: torch.Tensor  # int64 [ne]
+    preemph: torch.Tensor  # f32 [64]
+    group_idx: torch.Tensor  # int64 [16, 6]
+    group_w: torch.Tensor  # f32 [16, 6]
+    lfcb: torch.Tensor  # f32 [32, 8]
+    hfcb: torch.Tensor  # f32 [32, 8]
+    dct16: torch.Tensor  # f32 [16, 16]
+    interp_w: torch.Tensor  # f32 [4]
+    mpvq_offsets: torch.Tensor  # int64 [16, 11]
+    tns_sub: torch.Tensor  # int32 [5, 2, 3, 2]
+    tns_bounds: torch.Tensor  # int32 [5, 2, 2]
+    lag_window: torch.Tensor  # f32 [9]
+    tns_step: float  # f32 pi / 17
+    tns_sin: torch.Tensor  # f32 [17] sinf(step * (i - 8))
+    tns_order_bits: torch.Tensor  # int64 [2, 8]
+    tns_coef_bits: torch.Tensor  # int64 [8, 17]
+    gg_table: torch.Tensor  # f32 [256]
+    gg_off: int
+    nf_bw_stop: torch.Tensor  # int64 [5]
+    ltpf: LtpfEncConsts
+
+
+LAG_WINDOW = np.array([1.0, 0.9980280260203829, 0.9921354055113971, 0.9823915844707989,
+                       0.9689107911912967, 0.9518498073692735, 0.9314049334023056,
+                       0.9078082299969592, 0.8813231366694713], dtype=F32)
+
+
+@lru_cache(maxsize=None)
+def _encoder_tables(cfg: Lc3Config, nbits: int, device: torch.device) -> EncoderTables:
+    p = encoder_params(cfg)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, F32), device=device)
+    i64 = lambda a: torch.as_tensor(np.asarray(a, np.int64), device=device)
+    widths = np.diff(p.band_idx)
+    maxw = int(widths.max())
+    lines = p.band_idx[:-1, None] + np.arange(maxw)[None, :]
+    valid = np.arange(maxw)[None, :] < widths[:, None]
+    step = F32(np.pi / 17.0)
+    gg, gg_off = gain_table(nbits, cfg.fs_ind)
+    return EncoderTables(
+        p=p,
+        window=f32(p.window),
+        band_lines=i64(np.where(valid, lines, 0)),
+        band_valid=torch.as_tensor(valid, device=device),
+        band_width=f32(widths.astype(F32)),
+        band_of_line=i64(p.band_of_line),
+        preemph=f32(p.preemph),
+        group_idx=i64(p.group_idx),
+        group_w=f32(p.group_w),
+        lfcb=f32(T.LFCB),
+        hfcb=f32(T.HFCB),
+        dct16=f32(T.DCT16),
+        interp_w=f32([0.125, 0.375, 0.625, 0.875]),
+        mpvq_offsets=i64(T.MPVQ_OFFSETS),
+        tns_sub=torch.as_tensor(np.asarray(p.tns_sub, np.int32), device=device),
+        tns_bounds=torch.as_tensor(np.asarray(p.tns_bounds, np.int32), device=device),
+        lag_window=f32(LAG_WINDOW),
+        tns_step=float(step),
+        tns_sin=f32([np.sin(np.float64(step * (F32(i) - F32(8.0)))) for i in range(17)]),
+        tns_order_bits=i64(T.AC_TNS_ORDER_BITS),
+        tns_coef_bits=i64(T.AC_TNS_COEF_BITS),
+        gg_table=f32(gg),
+        gg_off=gg_off,
+        nf_bw_stop=i64(p.nf_bw_stop),
+        ltpf=ltpf_enc_consts(cfg, device),
+    )
+
+
+def encoder_tables(cfg: Lc3Config, nbits: int, device="cpu") -> EncoderTables:
+    """The encoder's constants on `device`, built once and cached."""
+    return _encoder_tables(cfg, int(nbits), torch.device(device))
+
+
+_ENC_STATE_DTYPES = {
+    "att_pos_last": np.int32, "quant_reset_offset": bool, "quant_nbits_spec": np.int32,
+    "quant_nbits_est": np.int32, "t_prev": np.int32, "mem_active": bool,
+}
+
+
+def _enc_tensor(name, a, device):
+    return torch.as_tensor(np.asarray(a, _ENC_STATE_DTYPES.get(name, F32)), device=device)
+
+
+def encoder_state_from_numpy(d, device="cpu") -> EncoderState:
+    """EncoderState from {field: array, ..., "ltpf": {field: array}} (the
+    leaves of the JAX EncoderState / LtpfEncState)."""
+    ltpf = LtpfEncState(**{
+        f.name: _enc_tensor(f.name, d["ltpf"][f.name], device)
+        for f in dataclasses.fields(LtpfEncState)
+    })
+    return EncoderState(
+        ltpf=ltpf,
+        **{f.name: _enc_tensor(f.name, d[f.name], device)
+           for f in dataclasses.fields(EncoderState) if f.name != "ltpf"},
+    )
+
+
+def encoder_state_to_numpy(st: EncoderState) -> dict:
+    """The inverse of encoder_state_from_numpy: nested dict of numpy arrays."""
+    out = {f.name: getattr(st, f.name).cpu().numpy()
+           for f in dataclasses.fields(EncoderState) if f.name != "ltpf"}
+    out["ltpf"] = {f.name: getattr(st.ltpf, f.name).cpu().numpy()
+                   for f in dataclasses.fields(LtpfEncState)}
+    return out
+
+
+def encoder_fields_to_numpy(fields: dict) -> dict:
+    """encode_step's fields as numpy arrays (Python scalars stay scalars),
+    the layout the host packer and the JAX step's fields share."""
+    return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v for k, v in fields.items()}

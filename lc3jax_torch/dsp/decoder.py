@@ -20,9 +20,9 @@ from dataclasses import dataclass
 
 import torch
 
-from lc3jax.config import Lc3Config
-
+from ..config import Lc3Config
 from .ltpf import LtpfState, ltpf_init, ltpf_run
+from .params import decoder_params
 from .tns_kernel import tns_synthesis
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -71,8 +71,6 @@ class DecoderState:
 
 
 def decoder_init(cfg: Lc3Config, n_streams: int, device="cpu") -> DecoderState:
-    from lc3jax.dsp.params import decoder_params
-
     p = decoder_params(cfg)
     return DecoderState(
         mem_ola=torch.zeros(n_streams, cfg.nf - cfg.z, dtype=F32, device=device),

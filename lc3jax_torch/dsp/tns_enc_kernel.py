@@ -1,0 +1,156 @@
+"""Encoder TNS: the autocorrelation kernel (csrc/tns_autocorr.cu), the
+analysis lattice kernel (csrc/tns_analysis.cu), and their plain PyTorch
+versions.
+
+- tns_autocorr replaces lc3jax/dsp/pallas_tns.py:tns_autocorr_pallas: for
+  each of 2 filters x 3 sub-blocks the lag-0..8 sums of x[n] * x[n + k] over
+  n in [lo, hi - k). Both versions sum in the oracle's order
+  (lc3jax/ref/tns_enc.py:_autocorrelation), one strict left-to-right f32
+  fold per lag; the JAX XLA and Pallas versions reduce with jnp.sum, whose
+  order is XLA's.
+- tns_analysis replaces lc3jax/dsp/pallas_tns.py:tns_analysis_pallas: the
+  forward lattice (up to 2 filters of order <= 8) over the spectral lines,
+  following the XLA scan of lc3jax/dsp/encoder.py:877-913.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+autocorr_launches = 0  # kernel launches since the last reset
+analysis_launches = 0
+
+
+def _check(name, x, others):
+    """x float32 [S, ne]; each (arg, tensor, shape, dtype) of others as given."""
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise ValueError(f"{name}: x must be float32 [S, ne], got {x.dtype} {tuple(x.shape)}")
+    for arg, t, shape, dtype in others:
+        if t.device != x.device or tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name}: {arg} must be {dtype} {shape} on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+# ----------------------------------------------------------- autocorrelation
+
+
+def tns_autocorr_plain(x: torch.Tensor, sub: torch.Tensor) -> torch.Tensor:
+    """x [S, ne] f32, sub [S, 2, 3, 2] int32 (lo, hi) -> [S, 2, 3, 9] f32."""
+    S, ne = x.shape
+    lo = sub[..., 0].reshape(S, 6).long()
+    hi = sub[..., 1].reshape(S, 6).long()
+    L = int((hi - lo).max()) if S else 0
+    pos = lo[:, :, None] + torch.arange(L + 8, device=x.device)  # [S, 6, L + 8]
+    xw = x.gather(1, pos.clamp(max=ne - 1).reshape(S, -1)).reshape(S, 6, L + 8)
+    xw = torch.where(pos < hi[:, :, None], xw, 0.0)  # the window, zero past hi
+    acc = torch.zeros(S, 6, 9, dtype=x.dtype, device=x.device)
+    for j in range(L):  # the oracle's left-to-right fold, one add per line
+        acc = acc + xw[:, :, j : j + 1] * xw[:, :, j : j + 9]
+    return acc.reshape(S, 2, 3, 9)
+
+
+def tns_autocorr(x: torch.Tensor, sub: torch.Tensor) -> torch.Tensor:
+    """Masked lag sums for any S >= 1 (see tns_autocorr_plain)."""
+    if x.device.type == "cpu":
+        return tns_autocorr_plain(x, sub)
+    if x.device.type != "cuda":
+        raise ValueError(f"tns_autocorr: unsupported device {x.device}")
+    S, ne = x.shape
+    _check("tns_autocorr", x, [("sub", sub, (S, 2, 3, 2), torch.int32)])
+    global autocorr_launches
+    xc = x.contiguous()
+    subc = sub.contiguous()
+    out = torch.empty(S, 2, 3, 9, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.lib().lc3t_tns_autocorr(
+            xc.data_ptr(), subc.data_ptr(), out.data_ptr(), S, ne,
+            _build.stream_ptr(x.device),
+        )
+    _build.check(err, "lc3t_tns_autocorr")
+    autocorr_launches += 1
+    return out
+
+
+# ---------------------------------------------------------- analysis lattice
+
+
+def _orders(rc_order, num_filters):
+    # the num_filters > 1 gate folds into the second filter's order
+    ord1 = torch.where(num_filters > 1, rc_order[:, 1], 0)
+    return torch.stack([rc_order[:, 0], ord1], 1).to(torch.int32)
+
+
+def tns_analysis_plain(x, bounds, rc_order, num_filters, rc_q):
+    """x [S, ne] f32; bounds [S, 2, 2] (lo, hi) per filter, rc_order [S, 2]
+    and num_filters [S], int32; rc_q [S, 16] f32 -> the filtered x [S, ne]."""
+    S, ne = x.shape
+    dev = x.device
+    order = _orders(rc_order, num_filters).long()
+    b = bounds.reshape(S, 4).long()
+    n = torch.arange(ne, device=dev)[:, None]  # [ne, 1]
+    in_f0 = (n >= b[:, 0]) & (n < b[:, 1]) & (order[:, 0] > 0)
+    in_f1 = (n >= b[:, 2]) & (n < b[:, 3]) & (order[:, 1] > 0)
+    active = in_f0 | in_f1  # [ne, S]
+    line_order = torch.where(in_f1, order[:, 1], order[:, 0])  # [ne, S]
+    rows = active.any(dim=1).nonzero().flatten().tolist()
+    rc0, rc1 = rc_q[:, :8], rc_q[:, 8:]
+    kk8 = torch.arange(8, device=dev)
+
+    out = x.clone()
+    st = torch.zeros(S, 8, dtype=x.dtype, device=dev)
+    for li in rows:
+        a = active[li]
+        o = line_order[li]
+        rc = torch.where(in_f1[li][:, None], rc1, rc0)
+        xn = x[:, li]
+        t = xn
+        st_save = t
+        cols = []
+        for k in range(7):
+            m = k < o - 1
+            st_tmp = rc[:, k] * t + st[:, k]
+            t = torch.where(m, t + rc[:, k] * st[:, k], t)
+            cols.append(torch.where(m, st_save, st[:, k]))
+            st_save = torch.where(m, st_tmp, st_save)
+        new_st = torch.stack(cols + [st[:, 7]], 1)
+        last = (o - 1).clamp(0, 7)
+        rc_last = rc.gather(1, last[:, None])[:, 0]
+        st_last = new_st.gather(1, last[:, None])[:, 0]
+        t = t + rc_last * st_last
+        new_st = torch.where(kk8[None, :] == last[:, None], st_save[:, None], new_st)
+        st = torch.where(a[:, None], new_st, st)
+        out[:, li] = torch.where(a, t, xn)
+    return out
+
+
+def tns_analysis(x, bounds, rc_order, num_filters, rc_q):
+    """Forward TNS lattice for any S >= 1 (see tns_analysis_plain)."""
+    if x.device.type == "cpu":
+        return tns_analysis_plain(x, bounds, rc_order, num_filters, rc_q)
+    if x.device.type != "cuda":
+        raise ValueError(f"tns_analysis: unsupported device {x.device}")
+    S, ne = x.shape
+    i32 = torch.int32
+    _check("tns_analysis", x, [("bounds", bounds, (S, 2, 2), i32),
+                               ("rc_order", rc_order, (S, 2), i32),
+                               ("num_filters", num_filters, (S,), i32),
+                               ("rc_q", rc_q, (S, 16), torch.float32)])
+    global analysis_launches
+    order = _orders(rc_order, num_filters).contiguous()
+    b = bounds.reshape(S, 4).contiguous()
+    rc = rc_q.contiguous()
+    x_t = x.t().contiguous()  # [ne, S]: streams on the fast axis
+    out_t = torch.empty_like(x_t)
+    with torch.cuda.device(x.device):
+        err = _build.lib().lc3t_tns_analysis(
+            x_t.data_ptr(), rc.data_ptr(), b.data_ptr(), order.data_ptr(),
+            out_t.data_ptr(), S, ne, _build.stream_ptr(x.device),
+        )
+    _build.check(err, "lc3t_tns_analysis")
+    analysis_launches += 1
+    return out_t.t()

@@ -1,9 +1,9 @@
-"""Serving entry point: batched decode of raw frame bytes (port of the
-device-parse mode of lc3jax/serving.py:BatchDecoder).
+"""Serving entry points: batched decode of raw frame bytes and batched
+encode of PCM (ports of lc3jax/serving.py:BatchDecoder in its device-parse
+mode and BatchEncoder in its host-pack mode).
 
-One call decodes one frame for each of n_streams streams: the parse kernel,
-the spectral DSP, TNS, the IMDCT and the LTPF all run on `device` with no
-host work per batch beyond the copy of the payloads in and the PCM out.
+Both run on the card unless the caller passes device="cpu"; where no card
+is present, the default raises instead of carrying on on the CPU.
 """
 
 from __future__ import annotations
@@ -11,11 +11,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lc3jax.config import Lc3Config
-from lc3jax.metrics import CodecMetrics
-
+from .coding import host_pack
 from .coding.device import decode_bytes_step_stats
+from .config import Lc3Config
+from .convert import encoder_fields_to_numpy
 from .dsp.decoder import DecoderState, decoder_init
+from .dsp.encoder import EncoderState, encode_step, encoder_init
+from .metrics import CodecMetrics
+
+
+def _device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("lc3jax_torch: no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return dev
 
 
 class BatchDecoder:
@@ -24,11 +34,11 @@ class BatchDecoder:
     payloads: uint8 [S, nbytes] (one frame per stream). Returns int16 PCM
     [S, nf]. Corrupt frames are concealed (PLC) per stream."""
 
-    def __init__(self, cfg: Lc3Config, n_streams: int, nbytes: int, device="cpu"):
+    def __init__(self, cfg: Lc3Config, n_streams: int, nbytes: int, device="cuda"):
         self.cfg = cfg
         self.n_streams = n_streams
         self.nbytes = nbytes
-        self.device = torch.device(device)
+        self.device = _device(device)
         self.state: DecoderState = decoder_init(cfg, n_streams, self.device)
         self.metrics = CodecMetrics()
         self._frame_seconds = cfg.nf / cfg.fs
@@ -50,3 +60,37 @@ class BatchDecoder:
         """payloads uint8 [S, nbytes] (host) -> int16 PCM [S, nf] (host)."""
         buf = torch.as_tensor(np.ascontiguousarray(payloads, np.uint8)).to(self.device)
         return self.decode_tensor(buf).cpu().numpy()
+
+
+class BatchEncoder:
+    """Encodes batches of [n_streams, nf] int16 PCM into frames: the analysis
+    DSP on the device, the range coder on the host."""
+
+    def __init__(self, cfg: Lc3Config, n_streams: int, nbytes: int, device="cuda"):
+        self.cfg = cfg
+        self.n_streams = n_streams
+        self.nbytes = nbytes
+        self.device = _device(device)
+        self.state: EncoderState = encoder_init(cfg, n_streams, self.device)
+        self.metrics = CodecMetrics()
+        self._frame_seconds = cfg.nf / cfg.fs
+
+    def encode_fields_tensor(self, pcm: torch.Tensor, nbytes: int | None = None) -> dict:
+        """int16 [S, nf] tensor on the encoder's device -> the bitstream
+        fields, tensors on the same device (the names of encode_step)."""
+        if pcm.shape != (self.n_streams, self.cfg.nf):
+            raise ValueError(f"expected PCM [{self.n_streams}, {self.cfg.nf}], "
+                             f"got {tuple(pcm.shape)}")
+        nbytes = self.nbytes if nbytes is None else nbytes
+        self.state, fields = encode_step(self.cfg, nbytes, self.state, pcm)
+        return fields
+
+    def encode(self, pcm: np.ndarray, nbytes: int | None = None) -> np.ndarray:
+        """pcm int16 [S, nf] (host) -> uint8 [S, nbytes] (host). nbytes may
+        change per call (variable bitrate mid-stream, state preserved: the
+        encoder state does not depend on it)."""
+        nbytes = self.nbytes if nbytes is None else nbytes
+        x = torch.as_tensor(np.ascontiguousarray(pcm, np.int16)).to(self.device)
+        fields = encoder_fields_to_numpy(self.encode_fields_tensor(x, nbytes))
+        self.metrics.record_encode(self.n_streams, self._frame_seconds)
+        return host_pack.pack_frames(self.cfg, fields, nbytes)

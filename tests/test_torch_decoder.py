@@ -13,9 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from lc3jax.config import FrameDuration, Lc3Config
 from lc3jax.ref import fp
 from lc3jax.ref.decoder_stages import mpvq_deenum as oracle_deenum
+from lc3jax_torch.config import FrameDuration, Lc3Config
 from lc3jax_torch.coding.device import device_parse_plain, mpvq_deenum
 from lc3jax_torch.convert import decoder_tables
 from lc3jax_torch.dsp import decoder as D

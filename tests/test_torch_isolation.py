@@ -1,34 +1,77 @@
-"""lc3jax_torch stays free of JAX, and refuses to fall back where the
-CUDA toolchain or card is missing."""
+"""lc3jax_torch stays free of JAX and of the lc3jax package, runs on the
+card unless asked for the CPU, and refuses to fall back where the CUDA
+toolchain or card is missing."""
 
 import importlib.util
+import re
 import shutil
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 
-_DECODE_WITHOUT_JAX = """
+_CODEC_WITHOUT_JAX = """
 import sys
 import numpy as np
 import lc3jax_torch
-from lc3jax_torch.serving import BatchDecoder
+from lc3jax_torch.serving import BatchDecoder, BatchEncoder
+cfg = lc3jax_torch.Lc3Config.new(48000, lc3jax_torch.FrameDuration.MS10)
 g = np.load("tests/goldens/stream50.npz")
-dec = BatchDecoder(lc3jax_torch.Lc3Config.new(48000, lc3jax_torch.FrameDuration.MS10), 2, 120)
-pcm = dec.decode(g["payloads"][:2])
+pcm = BatchDecoder(cfg, 2, 120, device="cpu").decode(g["payloads"][:2])
 assert pcm.shape == (2, 480) and pcm.dtype == np.int16
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+frames = BatchEncoder(cfg, 2, 120, device="cpu").encode(g["pcm_in"][:2])
+assert frames.shape == (2, 120) and frames.dtype == np.uint8
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] == "lc3jax" or m.split(".")[0].startswith("jax"))
+assert not loaded, loaded
 print("ok")
 """
 
 
 def test_package_decodes_without_importing_jax():
-    res = subprocess.run([sys.executable, "-c", _DECODE_WITHOUT_JAX], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+    """A decode and an encode on the CPU load no lc3jax and no jax module."""
+    res = subprocess.run([sys.executable, "-c", _CODEC_WITHOUT_JAX], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+_IMPORT_LC3JAX = re.compile(r"^\s*(import\s+lc3jax\b(?!_torch)|from\s+lc3jax\b(?!_torch))",
+                            re.MULTILINE)
+
+
+def test_no_source_imports_lc3jax():
+    """No module of the port and not chip_smoke.py imports the JAX package."""
+    files = sorted((ROOT / "lc3jax_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if _IMPORT_LC3JAX.search(f.read_text())]
+    assert len(files) > 10 and not offenders, offenders
+
+
+def test_port_data_equals_jax_data():
+    """The port's copy of the spec tables is the JAX package's file."""
+    a = np.load(ROOT / "lc3jax" / "data" / "tables.npz")
+    b = np.load(ROOT / "lc3jax_torch" / "data" / "tables.npz")
+    assert sorted(a.files) == sorted(b.files)
+    assert all(np.array_equal(a[k], b[k]) for k in a.files)
+
+
+@pytest.mark.parametrize("entry", ["BatchDecoder", "BatchEncoder"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """Built without `device`, an entry point asks for CUDA: where no card is
+    present it raises rather than carrying on on the CPU."""
+    from lc3jax_torch import serving
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Lc3Config.new(16000, FrameDuration.MS10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(serving, entry)(cfg, 2, 40)
+    assert getattr(serving, entry)(cfg, 2, 40, device="cpu").device.type == "cpu"
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -45,6 +88,19 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.lib()
     assert not (tmp_path / "build").exists()
+
+
+def test_host_packer_build_failure_raises(monkeypatch, tmp_path):
+    """A packer that does not compile raises; there is no Python packer."""
+    from lc3jax_torch.coding import host_pack
+
+    bad = tmp_path / "broken.cc"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(host_pack, "SOURCE", bad)
+    monkeypatch.setattr(host_pack, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(host_pack, "_lib", None)
+    with pytest.raises(RuntimeError, match="failed to build"):
+        host_pack.load()
 
 
 def test_chip_smoke_fails_without_a_card(capsys):

@@ -14,11 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from lc3jax.config import FrameDuration, Lc3Config
+from lc3jax.config import FrameDuration as JFrameDuration
+from lc3jax.config import Lc3Config as JLc3Config
 from lc3jax.dsp import ltpf as JL
 from lc3jax.dsp.params import decoder_params
 from lc3jax.ref.ltpf import LongTermPostFilter
 from lc3jax.ref.side_info import LtpfInfo
+from lc3jax_torch.config import FrameDuration, Lc3Config
 from lc3jax_torch.convert import decoder_tables
 from lc3jax_torch.dsp import ltpf as TL
 from lc3jax_torch.dsp import ltpf_kernel
@@ -68,7 +70,7 @@ def test_ltpf_all_transitions_vs_oracle():
     rng = np.random.default_rng(0)
     seq = [(False, 0), (True, 300), (True, 300), (True, 320), (False, 0),
            (True, 300), (True, 440), (True, 443)]
-    ref = LongTermPostFilter(CFG48)
+    ref = LongTermPostFilter(JLc3Config.new(48000, JFrameDuration.MS10))
     st = TL.ltpf_init(tab.p, 1)
     for i, (act, idx) in enumerate(seq):
         x = rng.standard_normal(480).astype(np.float32) * 1000
@@ -82,10 +84,11 @@ def test_ltpf_all_transitions_vs_oracle():
 @pytest.mark.parametrize("fs,dur", [(8000, FrameDuration.MS10), (16000, FrameDuration.MS7P5),
                                     (44100, FrameDuration.MS10), (48000, FrameDuration.MS7P5)])
 def test_pitch_lag_and_reach_back_match_jax(fs, dur):
-    p = decoder_params(Lc3Config.new(fs, dur))
-    assert TL._reach_back(p) == JL._reach_back(p)
+    p = decoder_tables(Lc3Config.new(fs, dur), 1200).p
+    jp = decoder_params(JLc3Config.new(fs, JFrameDuration(dur.value)))
+    assert TL._reach_back(p) == JL._reach_back(jp)
     pi = np.arange(512, dtype=np.int32)
-    want = [np.asarray(a) for a in JL._filter_params(p, pi)]
+    want = [np.asarray(a) for a in JL._filter_params(jp, pi)]
     got = [a.numpy() for a in TL._filter_params(p, torch.as_tensor(pi))]
     assert all(np.array_equal(a, b) for a, b in zip(got, want))
 

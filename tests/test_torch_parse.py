@@ -14,13 +14,20 @@ import torch
 
 from lc3jax.coding import native
 from lc3jax.coding.host import parse_frames
-from lc3jax.config import FrameDuration, Lc3Config
+from lc3jax.config import FrameDuration as JFrameDuration
+from lc3jax.config import Lc3Config as JLc3Config
 from lc3jax.ref.encoder import Lc3Encoder
 from lc3jax_torch.coding import parse_kernel
+from lc3jax_torch.config import FrameDuration, Lc3Config
 from lc3jax_torch.coding.device import device_parse, device_parse_plain
 from test_corpus import GEOMETRIES, _cfg
 
 CFG48 = Lc3Config.new(48000, FrameDuration.MS10)
+J48 = JLc3Config.new(48000, JFrameDuration.MS10)
+
+
+def _port_cfg(cfg):
+    return Lc3Config.new(cfg.fs, FrameDuration(cfg.n_ms.value))
 
 
 def _assert_fields_equal(got, want, good=None):
@@ -36,7 +43,7 @@ def _assert_fields_equal(got, want, good=None):
 def test_parse_matches_python_parser_on_stream50(goldens):
     g = goldens("stream50")
     got = device_parse_plain(CFG48, 120, torch.as_tensor(g["payloads"]))
-    _assert_fields_equal(got, parse_frames(CFG48, [bytes(r) for r in g["payloads"]]))
+    _assert_fields_equal(got, parse_frames(J48, [bytes(r) for r in g["payloads"]]))
 
 
 @pytest.mark.skipif(not native.available(), reason="native library not built")
@@ -46,7 +53,7 @@ def test_parse_matches_native_parser_on_corpus(goldens, key):
     payloads = goldens("corpus")[key + "_payloads"]
     want = native.parse_frames_native(cfg, payloads)
     good = ~np.asarray(want.bad_frame)
-    got = device_parse_plain(cfg, nbytes, torch.as_tensor(payloads))
+    got = device_parse_plain(_port_cfg(cfg), nbytes, torch.as_tensor(payloads))
     _assert_fields_equal(got, want, good)
 
 
@@ -57,11 +64,11 @@ def test_parse_fuzz_matches_python_parser():
     arr = np.random.default_rng(11).integers(0, 256, (24, nbytes), dtype=np.uint8)
     t = np.arange(2 * 480) / 48000
     sig = (7000 * np.sin(2 * np.pi * 440 * t)).astype(np.int16)
-    enc = Lc3Encoder(1, FrameDuration.MS10, 48000)
+    enc = Lc3Encoder(1, JFrameDuration.MS10, 48000)
     for f in range(2):
         arr[f] = np.frombuffer(bytes(enc.encode_frame(0, sig[f * 480:(f + 1) * 480], nbytes)),
                                np.uint8)
-    want = parse_frames(CFG48, [bytes(r) for r in arr])
+    want = parse_frames(J48, [bytes(r) for r in arr])
     bad = np.asarray(want.bad_frame)
     assert not bad[:2].any() and bad.mean() > 0.2
     got = device_parse_plain(CFG48, nbytes, torch.as_tensor(arr))

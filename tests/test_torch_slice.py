@@ -21,8 +21,10 @@ import pytest
 import torch
 
 from lc3jax.coding import native
-from lc3jax.config import FrameDuration, Lc3Config
+from lc3jax.config import FrameDuration as JFrameDuration
+from lc3jax.config import Lc3Config as JLc3Config
 from lc3jax_torch.coding.device import device_parse_plain
+from lc3jax_torch.config import FrameDuration, Lc3Config
 from lc3jax_torch.convert import (decoder_state_from_numpy, decoder_state_to_numpy,
                                   parsed_frames_from_numpy)
 from lc3jax_torch.dsp import decoder as D
@@ -31,6 +33,7 @@ from test_corpus import GEOMETRIES, _cfg
 
 CFG48 = Lc3Config.new(48000, FrameDuration.MS10)
 CFG32 = Lc3Config.new(32000, FrameDuration.MS7P5)
+J48 = JLc3Config.new(48000, JFrameDuration.MS10)
 
 
 def _frame(frames, f):
@@ -68,7 +71,8 @@ def test_slice_within_jax_envelope(goldens, key):
         cfg, nbytes, payloads, want = CFG48, int(g["nbytes"]), g["payloads"], g["pcm_out"]
     else:
         g = goldens("corpus")
-        cfg, nbytes = _cfg(key)
+        jcfg, nbytes = _cfg(key)
+        cfg = Lc3Config.new(jcfg.fs, FrameDuration(jcfg.n_ms.value))
         payloads, want = g[key + "_payloads"], g[key + "_pcm_out"]
     _assert_envelope(_decode_stream(cfg, nbytes, payloads), want, key)
 
@@ -76,7 +80,7 @@ def test_slice_within_jax_envelope(goldens, key):
 def test_batch_decoder_stream50(goldens):
     """The entry point, frame by frame, over the first 12 frames."""
     g = goldens("stream50")
-    dec = BatchDecoder(CFG48, 1, 120)
+    dec = BatchDecoder(CFG48, 1, 120, device="cpu")
     pcm = np.stack([dec.decode(g["payloads"][f:f + 1])[0] for f in range(12)])
     _assert_envelope(pcm, g["pcm_out"][:12], "stream50")
     snap = dec.metrics.snapshot()
@@ -99,7 +103,7 @@ def test_batch_decoder_state_matches_jax(goldens):
 
     payloads, want_pcm = g["dec_payloads"], g["dec_pcm"]
     T, S, nbytes = payloads.shape
-    dec = BatchDecoder(CFG32, S, nbytes)
+    dec = BatchDecoder(CFG32, S, nbytes, device="cpu")
     dec.state = decoder_state_from_numpy(nested("dec_init_"))
     pcm = np.stack([dec.decode(payloads[f]) for f in range(T)])
     assert np.abs(pcm.astype(int) - want_pcm).max() <= 1
@@ -141,5 +145,5 @@ def test_decode_from_native_fields_equals_fused(goldens):
     fused = D.decode_step(CFG48, 960, D.decoder_init(CFG48, 4),
                           device_parse_plain(CFG48, 120, torch.as_tensor(pl)))[1]
     host = D.decode_step(CFG48, 960, D.decoder_init(CFG48, 4),
-                         parsed_frames_from_numpy(native.parse_frames_native(CFG48, pl)))[1]
+                         parsed_frames_from_numpy(native.parse_frames_native(J48, pl)))[1]
     assert torch.equal(fused, host)

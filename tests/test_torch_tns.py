@@ -16,16 +16,19 @@ import numpy as np
 import pytest
 import torch
 
-from lc3jax.config import FrameDuration, Lc3Config
+from lc3jax.config import FrameDuration as JFrameDuration
+from lc3jax.config import Lc3Config as JLc3Config
 from lc3jax.dsp import decoder as JD
 from lc3jax.dsp.params import decoder_params
 from lc3jax_torch.coding.device import device_parse_plain
+from lc3jax_torch.config import FrameDuration, Lc3Config
 from lc3jax_torch.convert import decoder_tables, tns_sin_table
 from lc3jax_torch.dsp import decoder as TD
 from lc3jax_torch.dsp import tns_kernel
 from lc3jax_torch.dsp.tns_kernel import tns_synthesis, tns_synthesis_plain
 
 CFG48 = Lc3Config.new(48000, FrameDuration.MS10)
+J48 = JLc3Config.new(48000, JFrameDuration.MS10)
 F32 = np.float32
 
 
@@ -41,7 +44,7 @@ def _random_case(S=8, seed=0):
 def _scalar_lattice(x, bw, rc_order, rc_i, fma: bool):
     """The update rule of lc3jax/dsp/decoder.py:tns_synthesis, one f32
     scalar op at a time (optionally with fused multiply-adds)."""
-    p = decoder_params(CFG48)
+    p = decoder_params(J48)
     sin = tns_sin_table()
     if fma:
         mac = lambda a, b, c: F32(np.float64(a) * np.float64(b) + np.float64(c))
@@ -81,7 +84,7 @@ def test_tns_bit_exact_against_scalar_lattice(fma):
     x, bw, ro, ri = _random_case()
     want = _scalar_lattice(x, bw, ro, ri, fma=fma)
     if fma:
-        got = np.asarray(JD.tns_synthesis(decoder_params(CFG48), x, bw, ro, ri))
+        got = np.asarray(JD.tns_synthesis(decoder_params(J48), x, bw, ro, ri))
     else:
         got = _plain(x, bw, ro, ri)
     assert np.array_equal(got, want)
@@ -93,7 +96,7 @@ def test_tns_plain_matches_jax_on_decoded_frames(goldens):
     tab = decoder_tables(CFG48, 960)
     x = TD.pre_tns(tab, fr)
     got = tns_synthesis_plain(tab, x, fr.bandwidth, fr.rc_order, fr.rc_i).numpy()
-    ref = np.asarray(JD.tns_synthesis(decoder_params(CFG48), x.numpy(), fr.bandwidth.numpy(),
+    ref = np.asarray(JD.tns_synthesis(decoder_params(J48), x.numpy(), fr.bandwidth.numpy(),
                                       fr.rc_order.numpy(), fr.rc_i.numpy()))
     assert int(fr.rc_order.max()) > 0, "content exercises no TNS filter"
     assert np.abs(got - ref).max() <= np.spacing(F32(np.abs(ref).max()))

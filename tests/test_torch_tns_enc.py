@@ -1,0 +1,104 @@
+"""lc3jax_torch encoder TNS (autocorrelation, analysis lattice and the whole
+stage) against the JAX package and the oracle.
+
+The JAX outputs come from tests/goldens/torch_encode.npz
+(tools/gen_torch_encode_goldens.py): `tns_autocorr_pallas` and
+`tns_analysis_pallas` in interpret mode, and `tns_analysis_batch` through
+its XLA and its Pallas path, on 128 spectra with correlated lines at
+48 kHz / 10 ms, 1200 bits.
+
+Tolerances. The port sums each autocorrelation lag in the oracle's order,
+one left-to-right f32 fold; JAX reduces with jnp.sum in XLA's order. So
+a lag sum may differ by a few roundings of its terms, bounded here by 1e-6
+of the block's lag-0 energy (which bounds every lag of the block; measured
+4.7e-7). The lattice rounds every multiply and add on its own; XLA may
+contract them into fma: bounded by 1e-6 of the row's largest magnitude
+(measured 1.0e-7, 75% of rows exact). The integer fields (reflection
+indices, orders, filter count, bits) are equal, and against the oracle's
+own TNS golden the port is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from lc3jax_torch.config import FrameDuration, Lc3Config
+from lc3jax_torch.convert import encoder_tables
+from lc3jax_torch.dsp import encoder as E
+from lc3jax_torch.dsp import tns_enc_kernel as K
+
+CFG48 = Lc3Config.new(48000, FrameDuration.MS10)
+F32 = np.float32
+RTOL = 1e-6
+
+
+@pytest.fixture(scope="module")
+def gold(goldens):
+    g = goldens("torch_encode")
+    out = {k[4:]: g[k] for k in g.files if k.startswith("tns_")}
+    xla_bits = out["xla_x"].view(np.int32)
+    for name in ("pallas_x", "lattice"):  # stored as ULP offsets from xla_x
+        out[name] = (xla_bits + out.pop(name.replace("_x", "") + "_ulps")).view(F32)
+    return out
+
+
+def _t(a):
+    return torch.as_tensor(a)
+
+
+def _lattice_args(gold):
+    return (_t(gold["x"]), _t(gold["bounds"]), _t(gold["xla_rc_order"]),
+            _t(gold["xla_num_tns_filters"]), _t(gold["rc_q"]))
+
+
+def _assert_rows_close(got, want):
+    scale = np.abs(want).max(1, keepdims=True)
+    assert (np.abs(got - want) <= RTOL * scale).all()
+
+
+def test_tns_autocorr_plain_close_to_pallas_kernel(gold):
+    got = K.tns_autocorr_plain(_t(gold["x"]), _t(gold["sub"])).numpy()
+    want = gold["ac"]
+    assert (np.abs(got - want) <= RTOL * want[..., :1]).all()
+
+
+def test_tns_analysis_plain_close_to_pallas_kernel(gold):
+    got = K.tns_analysis_plain(*_lattice_args(gold)).numpy()
+    assert int(gold["xla_rc_order"].max()) == 8 and int(gold["xla_num_tns_filters"].max()) == 2
+    _assert_rows_close(got, gold["lattice"])
+
+
+def test_tns_analysis_batch_matches_jax(gold):
+    tab = encoder_tables(CFG48, 1200)
+    x_f, fields = E.tns_analysis_batch(tab, _t(gold["x"]), _t(gold["bw"]), 1200, _t(gold["nn"]))
+    for k, v in fields.items():
+        assert np.array_equal(np.asarray(v), gold[f"xla_{k}"]), k
+    # the XLA and Pallas paths of JAX agree here; the port is held to both
+    _assert_rows_close(x_f.numpy(), gold["xla_x"])
+    _assert_rows_close(x_f.numpy(), gold["pallas_x"])
+
+
+def test_tns_analysis_batch_matches_oracle_golden(goldens):
+    """Autocorrelation, Levinson, weighting, quantisation and the lattice
+    against ref/tns_enc.py, bit for bit."""
+    g = goldens("tns_encode")
+    tab = encoder_tables(CFG48, 1200)
+    x_f, f = E.tns_analysis_batch(tab, _t(g["x_s"][None].astype(F32)), torch.tensor([4]), 1200,
+                                  torch.tensor([False]))
+    assert np.array_equal(x_f[0].numpy(), g["x_f_expected"])
+    assert f["rc_i"][0].tolist() == [10, 7, 8, 9, 7, 9, 8, 9, 14, 11, 6, 9, 7, 9, 8, 8]
+    assert f["rc_order"][0].tolist() == [8, 6]
+    assert (int(f["nbits_tns"][0]), f["lpc_weighting"]) == (42, 0)
+
+
+def test_tns_wrappers_take_plain_for_cpu_and_refuse_other_devices(gold):
+    x, sub = _t(gold["x"][:4]), _t(gold["sub"][:4])
+    args = [a[:4] for a in _lattice_args(gold)]
+    before = (K.autocorr_launches, K.analysis_launches)
+    assert torch.equal(K.tns_autocorr(x, sub), K.tns_autocorr_plain(x, sub))
+    assert torch.equal(K.tns_analysis(*args), K.tns_analysis_plain(*args))
+    assert (K.autocorr_launches, K.analysis_launches) == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.tns_autocorr(x.to("meta"), sub)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K.tns_analysis(args[0].to("meta"), *args[1:])

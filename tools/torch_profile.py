@@ -1,0 +1,187 @@
+#!/usr/bin/env python3
+"""Where the time of one lc3jax_torch step goes on a CUDA card.
+
+    python3 tools/torch_profile.py [--streams 2048] [--steps 10]
+
+For the fused decode step (`BatchDecoder.decode_tensor`) and the encode DSP
+step (`BatchEncoder.encode_fields_tensor`) at 48 kHz / 10 ms / 150 B, on the
+bench content of tests/goldens/torch_bench_content.npz tiled over the
+streams, after warm-up:
+
+- host wall per step: `steps` steps issued back to back, one synchronise;
+- device busy per step: the union of the card's activity intervals under
+  `torch.profiler` over `steps` steps, and the busy share it gives of the
+  wall step (the idle share is the rest);
+- device launches per step, and the eight names that take the most device
+  time;
+- for the encoder, each stage of `encode_step` synchronised on its own
+  (host wall per step), and the host side after the DSP step: the copy of
+  the fields to the host and the C++ packer, each a median of `steps`
+  calls.
+
+Prints one line per step kind and ends with one JSON object. Needs a card;
+without one it exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+NBYTES = 150
+
+
+def wall_ms(fn, steps: int) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def median_ms(fn, steps: int) -> float:
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def device_profile(fn, steps: int) -> dict:
+    """Busy ms per step (union of device intervals), launches per step and
+    the top names by device time, from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = defaultdict(float)
+    for e in evs:
+        by_name[e.name] += e.time_range.end - e.time_range.start
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "busy_ms": busy / steps / 1e3,
+        "launches": len(evs) / steps,
+        "top": [(name[:60], us / steps / 1e3) for name, us in top],
+    }
+
+
+ENCODE_STAGES = ("forward_mdct", "bandwidth_detect", "attack_detect", "sns_analysis",
+                 "tns_analysis_batch", "ltpf_analysis", "spectral_quantize",
+                 "residual_bits_batch", "noise_level_batch")
+
+
+def encode_stages(fn, steps: int) -> dict:
+    """Host wall ms per step of each stage of encode_step, each stage
+    synchronised before and after (so a stage's time includes its device
+    work and the host's launch time; the sum exceeds an unsynchronised step)."""
+    import torch
+
+    from lc3jax_torch.dsp import encoder as E
+
+    spent = defaultdict(float)
+    originals = {name: getattr(E, name) for name in ENCODE_STAGES}
+
+    def timed(name, orig):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] += time.perf_counter() - t0
+            return out
+        return run
+
+    for name, orig in originals.items():
+        setattr(E, name, timed(name, orig))
+    try:
+        for _ in range(steps):
+            fn()
+    finally:
+        for name, orig in originals.items():
+            setattr(E, name, orig)
+    return {name: spent[name] / steps * 1e3 for name in ENCODE_STAGES}
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--streams", type=int, default=2048)
+    ap.add_argument("--steps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_profile: no CUDA device", file=sys.stderr)
+        return 1
+    from lc3jax_torch.coding import host_pack
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.convert import encoder_fields_to_numpy
+    from lc3jax_torch.serving import BatchDecoder, BatchEncoder
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    S, steps = args.streams, args.steps
+    cfg = Lc3Config.new(48000, FrameDuration.MS10)
+    bench = np.load(ROOT / "tests" / "goldens" / "torch_bench_content.npz")
+    tile = np.arange(S) % 4
+    dev = torch.device("cuda")
+    pay = torch.as_tensor(bench["encoded"][tile, 0], device=dev)
+    pcm = torch.as_tensor(bench["pcm_in"][tile, 0], device=dev)
+    dec = BatchDecoder(cfg, S, NBYTES, device="cuda")
+    enc = BatchEncoder(cfg, S, NBYTES, device="cuda")
+    steps_of = {"decode": lambda: dec.decode_tensor(pay),
+                "encode_dsp": lambda: enc.encode_fields_tensor(pcm)}
+    out = {"card": card, "streams": S, "steps": steps}
+    for name, fn in steps_of.items():
+        for _ in range(3):
+            fn()
+        wall = wall_ms(fn, steps)
+        prof = device_profile(fn, steps)
+        out[name] = dict(wall_ms=wall, busy_share=prof["busy_ms"] / wall, **prof)
+        print(f"[{name}] {card}, S={S}: wall {wall:.3f} ms/step, device busy "
+              f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_ms'] / wall:.1f}%), "
+              f"{prof['launches']:.0f} device launches/step; top: " + "; ".join(
+                  f"{n} {ms:.4f} ms" for n, ms in prof["top"]), flush=True)
+    stages = encode_stages(steps_of["encode_dsp"], steps)
+    out["encode_stages_ms"] = stages
+    print(f"[encode-stages] {card}, S={S}, each synchronised: " + "; ".join(
+        f"{n} {ms:.3f} ms" for n, ms in stages.items()), flush=True)
+    fields = enc.encode_fields_tensor(pcm)
+    torch.cuda.synchronize()
+    to_host = median_ms(lambda: encoder_fields_to_numpy(fields), steps)
+    f_np = encoder_fields_to_numpy(fields)
+    pack = median_ms(lambda: host_pack.pack_frames(cfg, f_np, NBYTES), steps)
+    whole = median_ms(lambda: enc.encode(bench["pcm_in"][tile, 0]), steps)
+    out["encode_host"] = {"fields_to_host_ms": to_host, "pack_ms": pack, "encode_ms": whole}
+    print(f"[encode-host] {card}, S={S}: fields to host {to_host:.3f} ms, C++ pack "
+          f"{pack:.3f} ms, whole encode {whole:.3f} ms (medians of {steps})")
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
