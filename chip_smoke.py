@@ -9,7 +9,7 @@ last line). All run at 48 kHz / 10 ms / 150 B, S = 2048 streams, unless
 stated:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
-2. build: the seven kernels from lc3jax_torch/csrc, one nvcc per source, all
+2. build: the eight kernels from lc3jax_torch/csrc, one nvcc per source, all
    at once, then the host packer (native/lc3_bitstream.cc);
 3. kernels: each decode kernel against its plain PyTorch version on the
    card: parse on encoded frames mixed with random garbage (all 19 fields
@@ -18,6 +18,13 @@ stated:
 4. enc-kernels: the four encoder kernels against their plain versions, on
    random inputs and on the inputs the encoder gives them for the bench
    content (SNS PVQ, TNS autocorrelation, TNS analysis, bit model: equal);
+4b. pack-kernels: the bit model with emit_pack against its plain version
+   (and its table part against the one without), and the pack kernel
+   against its plain version and the C++ host packer, on the fields of four
+   batches: the bench content, full-scale noise (48 kHz / 150 B, every
+   frame in LSB mode), mixed content at 48 kHz / 10 ms / 400 B and at
+   8 kHz / 7.5 ms / 40 B; per batch, the frames in LSB mode, with a carry
+   resolved and with the finish's extra bit;
 5. slice: BatchDecoder(cuda).decode over T = 12 frames of the bench content
    (the four signals tiled over the streams, one corrupt frame); PCM within
    1 LSB and >= 100 dB SNR of the stored oracle decode; every decode
@@ -27,13 +34,20 @@ stated:
 7. encode: BatchEncoder(cuda).encode over the T frames of the bench
    content; every stream's bytes equal the oracle's; launch counts SNS =
    autocorrelation = analysis = T, bit model = 2T;
+7b. encode-fused: BatchEncoder(cuda, device_pack=True).encode_tensor over
+   the same T frames, PCM to bytes on the card; every stream's bytes equal
+   the oracle's; launch counts pack = T, bit model = 2T (T with emit_pack),
+   the other encoder kernels T;
 8. encode-corpus: the six corpus geometries and stream50 through the
    encoder at S = 1, every frame equal to the oracle's bytes;
+8b. encode-fused-corpus: the same through BatchEncoder(device_pack=True);
 9. times: CUDA events after warm-up, median of 20: the fused decode step,
    each kernel, its plain version and the library call where one exists.
-   The encode DSP step (CUDA events, host wall, thread CPU time) and the
-   whole encode with the host pack (host wall, thread CPU time) alternate
-   over 20 reps, each given as median [min-max].
+   The encode DSP step (CUDA events, host wall, thread CPU time), the
+   whole encode with the host pack (host wall, thread CPU time) and the
+   fused encode step (CUDA events, host wall) alternate over 20 reps, each
+   given as median [min-max]; the C++ host packer alone on the fields of
+   the fused step's bench batch, as a comparison (no PyTorch call packs).
 
 Then the card's line, one JSON line with the kernels (each with its bound:
 the larger of its bytes over 3.35 TB/s and its f32 operations over
@@ -111,13 +125,16 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     return float(np.median(times))
 
 
-def encode_times(enc, pcm_host: np.ndarray, pcm_dev, reps: int = REPS) -> dict:
-    """The encode DSP step and the whole encode, alternated rep by rep so that
-    both see the same host. Per rep, in ms: the DSP step by CUDA events
+def encode_times(enc, fenc, pcm_host: np.ndarray, pcm_dev, reps: int = REPS) -> dict:
+    """The encode DSP step, the whole encode with the host pack and the fused
+    encode step (fenc, device_pack=True), alternated rep by rep so that all
+    see the same host. Per rep, in ms: the DSP step by CUDA events
     (dsp_event), the host wall until its last launch is queued (dsp_issue)
     and until it is done (dsp_wall), and the issuing thread's CPU time
     (dsp_cpu); then the whole encode's host wall (enc_wall) and the main
-    thread's CPU time (enc_cpu; the packer's worker threads not counted).
+    thread's CPU time (enc_cpu; the packer's worker threads not counted);
+    then the fused step by CUDA events (fused_event) and host wall
+    (fused_wall).
     A host thread that is descheduled shows as wall above CPU time; a slower
     host core as CPU time that moves with the wall. Each rep first times a
     fixed pure-Python loop (probe): it moves with the steps if the host's
@@ -127,9 +144,10 @@ def encode_times(enc, pcm_host: np.ndarray, pcm_dev, reps: int = REPS) -> dict:
     for _ in range(3):
         enc.encode_fields_tensor(pcm_dev)
         enc.encode(pcm_host)
+        fenc.encode_tensor(pcm_dev)
     torch.cuda.synchronize()
     out = {k: [] for k in ("probe", "dsp_event", "dsp_issue", "dsp_wall", "dsp_cpu",
-                           "enc_wall", "enc_cpu")}
+                           "enc_wall", "enc_cpu", "fused_event", "fused_wall")}
     for _ in range(reps):
         t0 = time.perf_counter()
         sum(i * i for i in range(50_000))
@@ -145,9 +163,17 @@ def encode_times(enc, pcm_host: np.ndarray, pcm_dev, reps: int = REPS) -> dict:
         w1, c1 = time.perf_counter(), time.thread_time()
         enc.encode(pcm_host)
         w2, c2 = time.perf_counter(), time.thread_time()
+        fa = torch.cuda.Event(enable_timing=True)
+        fb = torch.cuda.Event(enable_timing=True)
+        fa.record()
+        fenc.encode_tensor(pcm_dev)
+        fb.record()
+        fb.synchronize()
+        w3 = time.perf_counter()
         for k, v in (("dsp_event", a.elapsed_time(b)), ("dsp_issue", (w_issue - w0) * 1e3),
                      ("dsp_wall", (w1 - w0) * 1e3), ("dsp_cpu", (c1 - c0) * 1e3),
-                     ("enc_wall", (w2 - w1) * 1e3), ("enc_cpu", (c2 - c1) * 1e3)):
+                     ("enc_wall", (w2 - w1) * 1e3), ("enc_cpu", (c2 - c1) * 1e3),
+                     ("fused_event", fa.elapsed_time(fb)), ("fused_wall", (w3 - w2) * 1e3)):
             out[k].append(v)
     return out
 
@@ -167,12 +193,14 @@ def encode_times_line(et: dict) -> str:
     corr = lambda k: float(np.corrcoef(v["probe"], v[k])[0, 1])
     return "; ".join(
         [f"{k} {spread(v[k])}" for k in ("probe", "dsp_event", "dsp_issue", "dsp_wall",
-                                         "enc_wall")]
+                                         "enc_wall", "fused_event", "fused_wall")]
         + [f"enc_wall - dsp_wall {spread(v['enc_wall'] - v['dsp_wall'])}",
+           f"fused_wall - dsp_wall {spread(v['fused_wall'] - v['dsp_wall'])}",
            f"CPU/wall dsp {v['dsp_cpu'].sum() / v['dsp_wall'].sum():.3f}, "
            f"enc {v['enc_cpu'].sum() / v['enc_wall'].sum():.3f}",
            f"corr(probe, dsp_wall) {corr('dsp_wall'):.2f}, "
-           f"corr(probe, enc_wall) {corr('enc_wall'):.2f}"])
+           f"corr(probe, enc_wall) {corr('enc_wall'):.2f}, "
+           f"corr(probe, fused_wall) {corr('fused_wall'):.2f}"])
 
 
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
@@ -209,6 +237,28 @@ def ltpf_stress(p, S: int, seed: int, device):
     return st, x, active, pitch
 
 
+def mixed_pcm(cfg, S: int, T: int, seed: int) -> np.ndarray:
+    """int16 [T, S, nf] in the pattern of tests/test_pallas_pack.py: silence,
+    full-scale noise (LSB mode), tones and quiet noise, by stream mod 4."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T * cfg.nf) / cfg.fs
+    out = np.zeros((S, T * cfg.nf))  # stream mod 4 == 0: silence
+    for i in range(S):
+        if i % 4 == 1:
+            out[i] = 28000 * rng.standard_normal(T * cfg.nf)
+        elif i % 4 == 2:
+            out[i] = 15000 * np.sin(2 * np.pi * (220 + 37 * (i % 11)) * t)
+        elif i % 4 == 3:
+            out[i] = rng.normal(0, 30, T * cfg.nf)
+    return np.clip(out, -32768, 32767).astype(np.int16).reshape(S, T, cfg.nf).transpose(1, 0, 2)
+
+
+def noise_pcm(cfg, S: int, T: int, seed: int) -> np.ndarray:
+    """int16 [T, S, nf] full-scale noise, 28,000 rms, clipped."""
+    rng = np.random.default_rng(seed)
+    return np.clip(rng.standard_normal((T, S, cfg.nf)) * 28000, -32768, 32767).astype(np.int16)
+
+
 def capture_kernel_inputs(enc, pcm):
     """Run one encode step and keep the arguments each encoder kernel gets."""
     from lc3jax_torch.dsp import bitmodel_kernel, sns_kernel, tns_enc_kernel
@@ -218,9 +268,9 @@ def capture_kernel_inputs(enc, pcm):
              (tns_enc_kernel, "tns_analysis"), (bitmodel_kernel, "bitmodel_table_part")]
     originals = [getattr(m, n) for m, n in spies]
     for (m, n), orig in zip(spies, originals):
-        def spy(*a, _n=n, _orig=orig):
+        def spy(*a, _n=n, _orig=orig, **kw):
             seen.setdefault(_n, a)
-            return _orig(*a)
+            return _orig(*a, **kw)
         setattr(m, n, spy)
     try:
         enc.encode_fields_tensor(pcm)
@@ -250,12 +300,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from lc3jax_torch import _build
     from lc3jax_torch.coding import device as cdev
-    from lc3jax_torch.coding import host_pack, parse_kernel
+    from lc3jax_torch.coding import host_pack, pack_kernel, parse_kernel
     from lc3jax_torch.config import FrameDuration, Lc3Config
-    from lc3jax_torch.convert import decoder_tables, encoder_tables
+    from lc3jax_torch.convert import decoder_tables, encoder_fields_to_numpy, encoder_tables
     from lc3jax_torch.dsp import bitmodel_kernel, ltpf_kernel, sns_kernel, tns_enc_kernel, tns_kernel
     from lc3jax_torch.dsp import decoder as D
-    from lc3jax_torch.dsp.encoder import tuple_symbols
+    from lc3jax_torch.dsp.encoder import encode_step, encoder_init, tuple_symbols
     from lc3jax_torch.dsp.ltpf import ltpf_pass_args
     from lc3jax_torch.serving import BatchDecoder, BatchEncoder
 
@@ -369,6 +419,49 @@ def main() -> int:
     torch.cuda.synchronize()
     log("enc-kernels", "; ".join(lines) + " (random and bench inputs, S=2048)")
 
+    # ---- 4b. the bit model's emit_pack and the pack kernel against their plain versions
+    bm = bitmodel_kernel
+    for label, args in (("random", random_args["bitmodel_table_part"]),
+                        ("bench", real["bitmodel_table_part"])):
+        emitted = bm.bitmodel_table_part(*args, emit_pack=True)
+        equal_outputs(f"bitmodel emit_pack ({label})", emitted,
+                      bm.bitmodel_table_part_plain(*args, emit_pack=True))
+        equal_outputs(f"bitmodel table part, emit_pack on vs off ({label})", emitted[0],
+                      bm.bitmodel_table_part(*args))
+    errs["pack"] = 0.0
+    cfg8 = Lc3Config.new(8000, FrameDuration.MS7P5)
+    batches = {
+        "bench 48k/10ms/150B": (cfg, NBYTES, pcm_in[tile, :2].transpose(1, 0, 2)),
+        "noise 48k/10ms/150B": (cfg, NBYTES, noise_pcm(cfg, S_MAIN, 2, seed=4)),
+        "mixed 48k/10ms/400B": (cfg, 400, mixed_pcm(cfg, S_MAIN, 2, seed=5)),
+        "mixed 8k/7.5ms/40B": (cfg8, 40, mixed_pcm(cfg8, S_MAIN, 2, seed=6)),
+    }
+    packed, lines = {}, []
+    for label, (c, nb, pcm_b) in batches.items():
+        st = encoder_init(c, S_MAIN, dev)
+        for f in range(pcm_b.shape[0]):
+            st, fields = encode_step(c, nb, st, torch.as_tensor(pcm_b[f], device=dev),
+                                     emit_pack=True)
+        got = pack_kernel.device_pack(c, nb, fields)
+        plain, stats = pack_kernel.device_pack_plain(c, nb, fields, stats=True)
+        equal_outputs(f"pack ({label})", got, plain)
+        host_fields = encoder_fields_to_numpy(
+            {k: v for k, v in fields.items() if k != "quant_pack_tables"})
+        host = host_pack.pack_frames(c, host_fields, nb)
+        bad = np.flatnonzero((got.cpu().numpy() != host).any(1))
+        if bad.size:
+            raise AssertionError(f"pack ({label}): kernel != host packer, "
+                                 f"streams {bad[:8].tolist()}")
+        counts = {k: int(v.sum()) for k, v in stats.items()}
+        packed[label] = (fields, host_fields, counts)
+        lines.append(f"{label}: kernel = plain = host packer on {S_MAIN} frames, {counts}")
+    if packed["noise 48k/10ms/150B"][2]["lsb_mode"] == 0:
+        raise AssertionError("pack: the noise batch has no frame in LSB mode")
+    if not any(v[2]["carry"] for v in packed.values()):
+        raise AssertionError("pack: no batch has a frame whose carry was resolved")
+    torch.cuda.synchronize()
+    log("pack-kernels", "bitmodel emit_pack: equal (random and bench inputs); " + "; ".join(lines))
+
     # ---- 5. the decode slice: BatchDecoder over T frames, S = 2048
     frames = bench["frames"]  # [4, T, nbytes], frame 5 of content 2 corrupt
     want = bench["pcm_out"][:, :T_FRAMES]
@@ -434,6 +527,28 @@ def main() -> int:
                   f"launches { {k: launches[k] for k in expect} }; "
                   f"frames_encoded {enc.metrics.frames_encoded}")
 
+    # ---- 7b. the fused encode slice: PCM to bytes on the card, S = 2048
+    fenc = BatchEncoder(cfg, S_MAIN, NBYTES, device="cuda", device_pack=True)
+    sns_kernel.launches = bitmodel_kernel.launches = bitmodel_kernel.emit_launches = 0
+    tns_enc_kernel.autocorr_launches = tns_enc_kernel.analysis_launches = 0
+    pack_kernel.launches = 0
+    out = [fenc.encode(pcm_in[tile, f]) for f in range(T_FRAMES)]
+    fused = {k: read() for k, read in enc_counters.items()}
+    fused["pack"] = pack_kernel.launches
+    fused["bitmodel emit_pack"] = bitmodel_kernel.emit_launches
+    want_fused = dict(expect, pack=T_FRAMES, **{"bitmodel emit_pack": T_FRAMES})
+    if fused != want_fused:
+        raise AssertionError(f"fused encode launch counts {fused} != {want_fused}")
+    launches["pack"] = fused["pack"]
+    out = np.stack(out, 1)  # [S, T, nbytes]
+    wrong = [s for s in range(S_MAIN)
+             if not np.array_equal(out[s], bench["encoded"][s % 4, :T_FRAMES])]
+    if wrong:
+        raise AssertionError(f"encode-fused: {len(wrong)}/{S_MAIN} streams differ from the oracle "
+                             f"(streams {wrong[:4]})")
+    log("encode-fused", f"S={S_MAIN} T={T_FRAMES}: all {S_MAIN * T_FRAMES} frames equal the "
+                        f"oracle's; launches {fused}; frames_encoded {fenc.metrics.frames_encoded}")
+
     # ---- 8. encode corpus and stream50 on the card, S = 1
     lines = []
     for name, parts, pcm_c, pl, _ in runs:
@@ -446,12 +561,25 @@ def main() -> int:
         lines.append(f"{name}: {len(pl)}/{len(pl)} equal")
     log("encode-corpus", "; ".join(lines))
 
+    # ---- 8b. the same through the fused encode, S = 1
+    lines = []
+    for name, parts, pcm_c, pl, _ in runs:
+        e = BatchEncoder(geo(parts), 1, pl.shape[1], device="cuda", device_pack=True)
+        got = np.stack([e.encode(pcm_c[f : f + 1])[0] for f in range(pcm_c.shape[0])])
+        bad = np.flatnonzero((got != pl).any(1))
+        if bad.size:
+            raise AssertionError(f"encode-fused-corpus {name}: {bad.size}/{len(pl)} frames differ "
+                                 f"from the oracle's (first {bad[:8].tolist()})")
+        lines.append(f"{name}: {len(pl)}/{len(pl)} equal")
+    log("encode-fused-corpus", "; ".join(lines))
+
     # ---- 9. times (CUDA events, median of REPS after warm-up)
     pay = torch.as_tensor(frames[tile, 0], device=dev)
     dec_ms = cuda_ms(lambda: dec.decode_tensor(pay))
     pcm0 = torch.as_tensor(pcm_in[tile, 0], device=dev)
-    et = encode_times(enc, pcm_in[tile, 0], pcm0)
+    et = encode_times(enc, fenc, pcm_in[tile, 0], pcm0)
     enc_ms, enc_wall = float(np.median(et["dsp_event"])), float(np.median(et["enc_wall"]))
+    fused_ms = float(np.median(et["fused_event"]))
     fr = cdev.device_parse(cfg, NBYTES, pay)
     real_tns = (tab, D.pre_tns(tab, fr), fr.bandwidth, fr.rc_order, fr.rc_i)
     kargs = {
@@ -461,8 +589,19 @@ def main() -> int:
     }
     for name, (kern, plain) in enc_fns.items():
         kargs[name] = (real[name], kern, plain)
-    times = {k: (cuda_ms(lambda: kern(*a)), cuda_ms(lambda: plain(*a)))
+    pack_f, pack_host_f, _ = packed["bench 48k/10ms/150B"]
+    kargs["pack"] = ((cfg, NBYTES, pack_f), pack_kernel.device_pack, pack_kernel.device_pack_plain)
+    plain_reps = {"pack": 5}  # a Python loop over about a thousand symbols
+    times = {k: (cuda_ms(lambda: kern(*a)), cuda_ms(lambda: plain(*a), plain_reps.get(k, REPS)))
              for k, (a, kern, plain) in kargs.items()}
+    bm_args = real["bitmodel_table_part"]
+    emit = (cuda_ms(lambda: bitmodel_kernel.bitmodel_table_part(*bm_args, emit_pack=True)),
+            cuda_ms(lambda: bitmodel_kernel.bitmodel_table_part_plain(*bm_args, emit_pack=True)))
+    host_ms = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        host_pack.pack_frames(cfg, pack_host_f, NBYTES)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
 
     # bounds, from this run's inputs; library calls where one computes the same
     bounds = {}
@@ -503,8 +642,24 @@ def main() -> int:
     cb, gb, sb, _, _, lb = real["bitmodel_table_part"]
     coded = float(torch.clamp_max((lb.long() + 1) >> 1, cb.shape[1]).sum())
     per_tuple = cb.element_size() + gb.element_size() + sb.element_size()
-    bounds["bitmodel_table_part"] = bound(
-        coded * per_tuple + nbytes_of(lb, *bitmodel_kernel.tables(dev)) + cb.numel() * 4, 0.0)
+    bm_bytes = coded * per_tuple + nbytes_of(lb, *bitmodel_kernel.tables(dev)) + cb.numel() * 4
+    bounds["bitmodel_table_part"] = bound(bm_bytes, 0.0)
+    # with emit_pack it also reads the coder's two tables and writes 5 operands a tuple
+    emit_bound = bound(bm_bytes + nbytes_of(*bitmodel_kernel.coder_tables(dev))
+                       + 5 * cb.numel() * 4, 0.0)
+    # the pack kernel reads each stream's coded lines of x_q, the residual bit
+    # of each line it may write, its 34 side fields and the operands of the
+    # symbols it codes (each coded tuple's escapes and final), and writes
+    # the frame
+    xq_p = pack_f["x_q"]
+    lnz_p = pack_f["quant_lastnz_trunc"].long()
+    tup_p = tuple_symbols(xq_p)
+    coded_p = torch.arange(cfg.ne // 2, device=dev)[None, :] < (lnz_p >> 1)[:, None]
+    n_ops = float(torch.where(coded_p, tup_p["g"].long() + 1, 0).sum())
+    n_res = float(torch.where(pack_f["quant_lsb_mode"], 0, pack_f["n_residual"].long()).sum())
+    bounds["pack"] = bound(float(lnz_p.sum()) * xq_p.element_size() + n_res
+                           + S_MAIN * pack_kernel.SIDE_ROWS * 4 + n_ops * 4
+                           + pack_kernel.TABLE_WORDS * 4 + S_MAIN * NBYTES, 0.0)
     # TNS autocorrelation as one batched matmul of the masked windows against
     # their nine shifts (the yardstick; the port never calls it)
     Lw = int((hi - lo).max())
@@ -521,12 +676,18 @@ def main() -> int:
                         + encode_times_line(et))
     log("times", f"{card}: decode step {dec_ms:.4f} ms = {rt(dec_ms):.1f}x realtime; "
                  f"encode DSP step {enc_ms:.4f} ms = {rt(enc_ms):.1f}x realtime; "
-                 f"encode with host pack {enc_wall:.4f} ms wall = {rt(enc_wall):.1f}x realtime "
-                 f"(S={S_MAIN}, 48k/10ms/150B); " + "; ".join(
+                 f"encode with host pack {enc_wall:.4f} ms wall = {rt(enc_wall):.1f}x realtime; "
+                 f"fused encode step {fused_ms:.4f} ms = {rt(fused_ms):.1f}x realtime "
+                 f"(S={S_MAIN}, 48k/10ms/150B); "
+                 f"bitmodel_table_part with emit_pack kernel {emit[0]:.4f} ms vs plain "
+                 f"{emit[1]:.4f} ms, bound {emit_bound[0]:.5f} ms ({emit_bound[1]}); " + "; ".join(
                      f"{k} kernel {a:.4f} ms vs plain {b:.4f} ms, bound {bounds[k][0]:.5f} ms "
                      f"({bounds[k][1]})" + (f", library {library[k]:.4f} ms"
                                             if library[k] is not None else "")
                      for k, (a, b) in times.items()))
+    log("host-pack", f"{card}: the C++ host packer (native/lc3_bitstream.cc, {host_pack.N_THREADS} "
+                     f"threads) on the pack kernel's bench fields, S={S_MAIN}, 150 B: "
+                     f"{spread(host_ms)} ms wall, median [min-max] of {REPS}")
     log("done", f"{time.perf_counter() - t_start:.1f} s")
 
     src = "lc3jax_torch/csrc/"
@@ -538,6 +699,7 @@ def main() -> int:
         "tns_autocorr": ("tns_autocorr.cu", "lc3jax/dsp/pallas_tns.py:158"),
         "tns_analysis": ("tns_analysis.cu", "lc3jax/dsp/pallas_tns.py:190"),
         "bitmodel_table_part": ("bitmodel.cu", "lc3jax/dsp/pallas_bitmodel.py:235"),
+        "pack": ("pack.cu", "lc3jax/coding/pallas_pack.py:574"),
     }
     names = {"ltpf": "ltpf_both_passes"}
     kernels = [
@@ -547,6 +709,9 @@ def main() -> int:
          "library_ms": library[k]}
         for k, (f, r) in meta.items()
     ]
+    kernels[list(meta).index("bitmodel_table_part")].update(
+        emit_pack_launches=fused["bitmodel emit_pack"], emit_pack_ms=emit[0],
+        emit_pack_plain_ms=emit[1], emit_pack_bound_ms=emit_bound[0])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -14,7 +14,13 @@ Two paths run on the card:
   card, with the SNS PVQ search (`csrc/sns_pvq.cu`), the TNS
   autocorrelation and analysis lattice (`csrc/tns_autocorr.cu`,
   `csrc/tns_analysis.cu`) and the bit model (`csrc/bitmodel.cu`) as
-  kernels, then the repo's C++ packer on the host (`coding.host_pack`).
+  kernels, then the repo's C++ packer on the host (`coding.host_pack`);
+- encode, PCM -> bytes on the card (`serving.BatchEncoder(device_pack=True)`,
+  the fused mode of `lc3jax.serving.BatchEncoder`): the same step with the
+  bit model's `emit_pack` rows, then the range encoder and bit writer
+  (kernel `csrc/pack.cu`, `coding.pack_kernel`).
+
+`dsp.streaming` loops any of the four steps over a leading frame axis.
 
 Every kernel has a plain PyTorch version beside it; a wrapper takes it only
 for a tensor on the CPU, and for a CUDA tensor launches the kernel or

@@ -433,3 +433,13 @@ def decode_bytes_step_stats(cfg: Lc3Config, nbytes: int, state, payloads):
     frames = device_parse(cfg, nbytes, payloads)
     state, pcm = decode_step(cfg, nbytes * 8, state, frames)
     return state, pcm, frames.bad_frame.sum()
+
+
+def encode_bytes_step(cfg: Lc3Config, nbytes: int, state, pcm):
+    """Fused: int16 PCM [S, nf] -> (state, frame bytes uint8 [S, nbytes]) on
+    the state's device: encode_step with emit_pack, then device_pack."""
+    from ..dsp.encoder import encode_step
+    from .pack_kernel import device_pack
+
+    state, fields = encode_step(cfg, nbytes, state, pcm, emit_pack=True)
+    return state, device_pack(cfg, nbytes, fields)

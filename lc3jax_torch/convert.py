@@ -296,3 +296,33 @@ def encoder_fields_to_numpy(fields: dict) -> dict:
     """encode_step's fields as numpy arrays (Python scalars stay scalars),
     the layout the host packer and the JAX step's fields share."""
     return {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v for k, v in fields.items()}
+
+
+def pack_tables_from_jax(pk, ne: int) -> np.ndarray:
+    """The JAX bit model's emit_pack rows [5 * nt_pad, S] (nt_pad: NT = ne / 2
+    rounded up to a multiple of 8, TPU tiling) -> the port's [5 * NT, S]."""
+    pk = np.asarray(pk)
+    NT = ne // 2
+    nt_pad = pk.shape[0] // 5
+    if pk.shape[0] != 5 * nt_pad or nt_pad < NT:
+        raise ValueError(f"pack tables of {pk.shape[0]} rows do not fit ne = {ne}")
+    return pk.reshape(5, nt_pad, -1)[:, :NT].reshape(5 * NT, -1)
+
+
+def encoder_fields_from_numpy(d: dict, device="cpu") -> dict:
+    """The inverse of encoder_fields_to_numpy: encode_step's fields (from
+    the port, or the JAX step's as numpy) as tensors on `device`, the
+    port's dtypes: bool stays bool, integers become int32, floats float32;
+    0-d values become Python ints. quant_pack_tables may come in the JAX
+    layout (pack_tables_from_jax)."""
+    out = {}
+    for k, v in d.items():
+        a = np.asarray(v)
+        if a.ndim == 0:
+            out[k] = int(a)
+            continue
+        if k == "quant_pack_tables":
+            a = pack_tables_from_jax(a, np.asarray(d["x_q"]).shape[-1])
+        dt = bool if a.dtype == bool else F32 if a.dtype.kind == "f" else np.int32
+        out[k] = torch.as_tensor(np.ascontiguousarray(a, dt), device=device)
+    return out

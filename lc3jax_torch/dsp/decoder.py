@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from ..config import Lc3Config
+from ..devices import resolve_device
 from .ltpf import LtpfState, ltpf_init, ltpf_run
 from .params import decoder_params
 from .tns_kernel import tns_synthesis
@@ -70,7 +71,8 @@ class DecoderState:
     ltpf: LtpfState
 
 
-def decoder_init(cfg: Lc3Config, n_streams: int, device="cpu") -> DecoderState:
+def decoder_init(cfg: Lc3Config, n_streams: int, device="cuda") -> DecoderState:
+    device = resolve_device(device)
     p = decoder_params(cfg)
     return DecoderState(
         mem_ola=torch.zeros(n_streams, cfg.nf - cfg.z, dtype=F32, device=device),

@@ -1,18 +1,20 @@
 """Batched LC3 encoder analysis: PCM [S, nf] -> bitstream fields (port of
-lc3jax/dsp/encoder.py, host-pack mode).
+lc3jax/dsp/encoder.py).
 
 One call of `encode_step` encodes one frame of S streams. The stages follow
 the reference encoder's order (encoder/lc3_encoder.rs:63-112): forward
 MDCT, bandwidth and attack detectors, SNS analysis with its two-stage VQ,
 TNS, LTPF pitch analysis (encoder_ltpf.py), the spectral quantizer with its
 bit model, the residual bits and the noise level. The output is the JAX
-step's dict of integer fields, which coding/host_pack.py packs into bytes.
+step's dict of integer fields, which coding/host_pack.py packs into bytes
+on the host, or, with emit_pack, coding/pack_kernel.py on the device.
 
 Four stages launch hand-written CUDA kernels on the card, each with a plain
 PyTorch version that a CPU tensor takes: the SNS PVQ search
 (sns_kernel.py), the TNS autocorrelation and analysis lattice
 (tns_enc_kernel.py), and the bit model's table lookups, twice a step
-(bitmodel_kernel.py).
+(bitmodel_kernel.py; the second pass also emits the range coder's operands
+when emit_pack is on).
 
 Exactness. The encoder must give the oracle's bytes (lc3jax/ref), which
 sits on f32 knife edges (quantizer rounding, PVQ and codebook argmins). So:
@@ -40,6 +42,7 @@ import torch
 from .. import fp
 from .. import tables as T
 from ..config import FrameDuration, Lc3Config
+from ..devices import resolve_device
 from . import bitmodel_kernel, libmexact, sns_kernel, tns_enc_kernel
 from .encoder_ltpf import LtpfEncState, ltpf_analysis, ltpf_enc_init
 from .fftexact import batched_dct_iv
@@ -194,7 +197,8 @@ class EncoderState:
     ltpf: LtpfEncState
 
 
-def encoder_init(cfg: Lc3Config, n_streams: int, device="cpu") -> EncoderState:
+def encoder_init(cfg: Lc3Config, n_streams: int, device="cuda") -> EncoderState:
+    device = resolve_device(device)
     z = lambda dt=torch.float32: torch.zeros(n_streams, dtype=dt, device=device)
     return EncoderState(
         time_buf=torch.zeros(n_streams, 2 * cfg.nf, dtype=torch.float32, device=device),
@@ -594,8 +598,10 @@ def _powi(x, n: int):
 
 
 def spectral_quantize(tab, state: EncoderState, x_f, nbits: int, nbits_bw: int,
-                      nbits_tns, nbits_ltpf):
-    """Gain search, quantization and bit model (ref/quant.py)."""
+                      nbits_tns, nbits_ltpf, emit_pack: bool = False):
+    """Gain search, quantization and bit model (ref/quant.py). emit_pack adds
+    fields["pack_tables"], the range coder's operands for the final
+    quantization, from the second bit-model pass (the pack kernel's input)."""
     p = tab.p
     cfg = p.cfg
     S, ne = x_f.shape
@@ -699,7 +705,7 @@ def spectral_quantize(tab, state: EncoderState, x_f, nbits: int, nbits_bw: int,
     x_q2, gg2 = quant_only(new_gg_ind)
     x_qf = torch.where(adjusted[:, None], x_q2, x_q1)
     gg = torch.where(adjusted, gg2, gg1)
-    bcf = bit_consumption(tab, x_qf, nbits, nbits_spec)
+    bcf = bit_consumption(tab, x_qf, nbits, nbits_spec, emit_pack=emit_pack)
     x_q = torch.where(torch.arange(ne, device=dev)[None, :] < bcf["lastnz_trunc"][:, None],
                       x_qf, 0)
     lsb_mode = bcf["mode_flag"] & (bcf["nbits_est"] > nbits_spec)
@@ -710,23 +716,31 @@ def spectral_quantize(tab, state: EncoderState, x_f, nbits: int, nbits_bw: int,
         lsb_mode=lsb_mode, rate_flag=bcf["rate_flag"],
         lastnz_trunc=bcf["lastnz_trunc"].to(I32), gg=gg,
     )
+    if emit_pack:
+        fields["pack_tables"] = bcf["pack_tables"]
     return x_q, fields, new_quant_state
 
 
-def bit_consumption(tab, x_q, nbits: int, nbits_spec):
+def bit_consumption(tab, x_q, nbits: int, nbits_spec, emit_pack: bool = False):
     """Arithmetic-coder bit model, parallel over tuples (ref/quant.py:173-236;
     the JAX derivation at lc3jax/dsp/encoder.py:1121-1136). The context of
     tuple n depends only on the two tuples before it, so every tuple is
-    independent; the table lookups are the kernel, the rest is integers."""
+    independent; the table lookups are the kernel, the rest is integers.
+    emit_pack adds "pack_tables" (bitmodel_kernel.bitmodel_table_part)."""
     fs_ind = tab.p.cfg.fs_ind
     ne = x_q.shape[1]
     rate_flag = 512 if nbits > (160 + fs_ind * 160) else 0
     mode_flag = nbits >= (480 + fs_ind * 160)
     t = tuple_symbols(x_q)
     est_c = bitmodel_kernel.bitmodel_table_part(t["c"], t["g"], t["sym"], rate_flag, ne,
-                                                t["lastnz"]).long()
-    return _bit_consumption_tail(est_c, t["a0"], t["b0"], t["g"], t["go0"], t["lastnz"],
-                                 nbits_spec, mode_flag, rate_flag, ne // 2)
+                                                t["lastnz"], emit_pack=emit_pack)
+    if emit_pack:
+        est_c, pk = est_c
+    out = _bit_consumption_tail(est_c.long(), t["a0"], t["b0"], t["g"], t["go0"], t["lastnz"],
+                                nbits_spec, mode_flag, rate_flag, ne // 2)
+    if emit_pack:
+        out["pack_tables"] = pk
+    return out
 
 
 def tuple_symbols(x_q) -> dict:
@@ -828,9 +842,14 @@ def noise_level_batch(tab, x_f, x_q, bw_ind, gg):
 # ------------------------------------------------------------- fused step
 
 
-def encode_step(cfg: Lc3Config, nbytes: int, state: EncoderState, x_s):
+def encode_step(cfg: Lc3Config, nbytes: int, state: EncoderState, x_s,
+                emit_pack: bool = False):
     """One batched frame: PCM [S, nf] int16 -> (state, bitstream fields), on
-    the device of the state. The fields carry the JAX step's names."""
+    the device of the state. The fields carry the JAX step's names.
+
+    emit_pack adds fields["quant_pack_tables"], the range coder's operands
+    for the pack kernel (coding/pack_kernel.py); leave it off for the host
+    packer. Only the second bit-model pass emits them."""
     nbits = nbytes * 8
     tab = _tables(cfg, nbits, state.time_buf.device)
     p = tab.p
@@ -842,7 +861,8 @@ def encode_step(cfg: Lc3Config, nbytes: int, state: EncoderState, x_s):
     x, tns_fields = tns_analysis_batch(tab, x, bw_ind, nbits, near_nyquist)
     ltpf_fields, ltpf_state = ltpf_analysis(cfg, tab, state.ltpf, x_s, near_nyquist, nbits)
     x_q, quant_fields, quant_state = spectral_quantize(
-        tab, state, x, nbits, nbits_bw, tns_fields["nbits_tns"], ltpf_fields["nbits_ltpf"])
+        tab, state, x, nbits, nbits_bw, tns_fields["nbits_tns"], ltpf_fields["nbits_ltpf"],
+        emit_pack=emit_pack)
     res_bits, n_res = residual_bits_batch(
         quant_fields["nbits_spec"], quant_fields["nbits_trunc"], quant_fields["gg"], x, x_q)
     noise_factor = noise_level_batch(tab, x, x_q, bw_ind, quant_fields["gg"])

@@ -105,7 +105,7 @@ def test_decode_step_golden_frame(goldens):
     g = goldens("decode_frame")
     pl = torch.as_tensor(np.stack([g["buf_in"], g["buf_in"]]).astype(np.uint8))
     frames = device_parse_plain(CFG48, 150, pl)
-    _, pcm = D.decode_step(CFG48, 1200, D.decoder_init(CFG48, 2), frames)
+    _, pcm = D.decode_step(CFG48, 1200, D.decoder_init(CFG48, 2, device="cpu"), frames)
     for s in range(2):
         assert np.abs(pcm[s].numpy().astype(int) - g["pcm_expected"]).max() <= 1
 
@@ -113,8 +113,8 @@ def test_decode_step_golden_frame(goldens):
 def test_decode_step_debug_taps(goldens):
     g = goldens("decode_frame")
     frames = device_parse_plain(CFG48, 150, torch.as_tensor(g["buf_in"][None].astype(np.uint8)))
-    st, (pcm, taps) = D.decode_step(CFG48, 1200, D.decoder_init(CFG48, 1), frames,
-                                    debug_taps=True)
+    st, (pcm, taps) = D.decode_step(CFG48, 1200, D.decoder_init(CFG48, 1, device="cpu"),
+                                    frames, debug_taps=True)
     assert taps["x_spec"].shape == (1, CFG48.ne) and taps["t_pre_ltpf"].shape == (1, CFG48.nf)
     assert pcm.dtype == torch.int16 and pcm.shape == (1, CFG48.nf)
     assert [f.name for f in dataclasses.fields(st)][-1] == "ltpf"

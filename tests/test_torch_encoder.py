@@ -115,7 +115,7 @@ def test_batch_encoder_keeps_state_across_nbytes_changes(goldens):
 
 
 def test_encoder_state_numpy_roundtrip():
-    st = E.encoder_init(CFG32, 3)
+    st = E.encoder_init(CFG32, 3, device="cpu")
     st.att_pos_last += 2
     st.ltpf.mem_active[1] = True
     d = encoder_state_to_numpy(st)

@@ -26,6 +26,8 @@ pcm = BatchDecoder(cfg, 2, 120, device="cpu").decode(g["payloads"][:2])
 assert pcm.shape == (2, 480) and pcm.dtype == np.int16
 frames = BatchEncoder(cfg, 2, 120, device="cpu").encode(g["pcm_in"][:2])
 assert frames.shape == (2, 120) and frames.dtype == np.uint8
+fused = BatchEncoder(cfg, 2, 120, device="cpu", device_pack=True).encode(g["pcm_in"][:2])
+assert np.array_equal(fused, frames)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] == "lc3jax" or m.split(".")[0].startswith("jax"))
 assert not loaded, loaded
@@ -34,7 +36,8 @@ print("ok")
 
 
 def test_package_decodes_without_importing_jax():
-    """A decode and an encode on the CPU load no lc3jax and no jax module."""
+    """A decode and an encode (host pack and fused) on the CPU load no lc3jax
+    and no jax module."""
     res = subprocess.run([sys.executable, "-c", _CODEC_WITHOUT_JAX], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
@@ -60,18 +63,33 @@ def test_port_data_equals_jax_data():
     assert all(np.array_equal(a[k], b[k]) for k in a.files)
 
 
-@pytest.mark.parametrize("entry", ["BatchDecoder", "BatchEncoder"])
+@pytest.mark.parametrize("entry", ["BatchDecoder", "BatchEncoder", "BatchEncoder-device_pack",
+                                   "encoder_init", "decoder_init"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
-    """Built without `device`, an entry point asks for CUDA: where no card is
-    present it raises rather than carrying on on the CPU."""
+    """Built without `device`, an entry point or state constructor asks for
+    CUDA: where no card is present it raises rather than carrying on on the
+    CPU."""
     from lc3jax_torch import serving
     from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.dsp.decoder import decoder_init
+    from lc3jax_torch.dsp.encoder import encoder_init
 
+    make = {
+        "BatchDecoder": lambda **kw: serving.BatchDecoder(cfg, 2, 40, **kw),
+        "BatchEncoder": lambda **kw: serving.BatchEncoder(cfg, 2, 40, **kw),
+        "BatchEncoder-device_pack": lambda **kw: serving.BatchEncoder(cfg, 2, 40, device_pack=True,
+                                                                      **kw),
+        "encoder_init": lambda **kw: encoder_init(cfg, 2, **kw),
+        "decoder_init": lambda **kw: decoder_init(cfg, 2, **kw),
+    }[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Lc3Config.new(16000, FrameDuration.MS10)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        getattr(serving, entry)(cfg, 2, 40)
-    assert getattr(serving, entry)(cfg, 2, 40, device="cpu").device.type == "cpu"
+        make()
+    built = make(device="cpu")
+    tensors = [v for v in vars(built).values() if isinstance(v, torch.Tensor)]
+    assert built.device.type == "cpu" if entry.startswith("Batch") else \
+        tensors and all(t.device.type == "cpu" for t in tensors)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -56,7 +56,7 @@ def _decode_stream(cfg, nbytes, payloads):
     nbits = nbytes * 8
     frames = device_parse_plain(cfg, nbytes, torch.as_tensor(payloads))
     x = D.decode_spectrum(cfg, nbits, frames)
-    st = D.decoder_init(cfg, 1)
+    st = D.decoder_init(cfg, 1, device="cpu")
     out = []
     for f in range(payloads.shape[0]):
         st, pcm = D.decode_synthesis(cfg, nbits, st, x[f:f + 1], _frame(frames, f))
@@ -123,7 +123,7 @@ def test_batch_decoder_state_matches_jax(goldens):
 
 
 def test_decoder_state_numpy_roundtrip():
-    st = D.decoder_init(CFG32, 3)
+    st = D.decoder_init(CFG32, 3, device="cpu")
     st.plc_seed += 7
     st.ltpf.active[1] = True
     d = decoder_state_to_numpy(st)
@@ -142,8 +142,8 @@ def test_decode_from_native_fields_equals_fused(goldens):
     the fused path's PCM: the two parsers agree, so must the decodes."""
     g = goldens("stream50")
     pl = g["payloads"][:4]
-    fused = D.decode_step(CFG48, 960, D.decoder_init(CFG48, 4),
+    fused = D.decode_step(CFG48, 960, D.decoder_init(CFG48, 4, device="cpu"),
                           device_parse_plain(CFG48, 120, torch.as_tensor(pl)))[1]
-    host = D.decode_step(CFG48, 960, D.decoder_init(CFG48, 4),
+    host = D.decode_step(CFG48, 960, D.decoder_init(CFG48, 4, device="cpu"),
                          parsed_frames_from_numpy(native.parse_frames_native(J48, pl)))[1]
     assert torch.equal(fused, host)

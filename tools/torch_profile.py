@@ -3,10 +3,11 @@
 
     python3 tools/torch_profile.py [--streams 2048] [--steps 10]
 
-For the fused decode step (`BatchDecoder.decode_tensor`) and the encode DSP
-step (`BatchEncoder.encode_fields_tensor`) at 48 kHz / 10 ms / 150 B, on the
-bench content of tests/goldens/torch_bench_content.npz tiled over the
-streams, after warm-up:
+For the fused decode step (`BatchDecoder.decode_tensor`), the encode DSP
+step (`BatchEncoder.encode_fields_tensor`) and the fused encode step
+(`BatchEncoder(device_pack=True).encode_tensor`) at 48 kHz / 10 ms /
+150 B, on the bench content of tests/goldens/torch_bench_content.npz tiled
+over the streams, after warm-up:
 
 - host wall per step: `steps` steps issued back to back, one synchronise;
 - device busy per step: the union of the card's activity intervals under
@@ -153,8 +154,10 @@ def main() -> int:
     pcm = torch.as_tensor(bench["pcm_in"][tile, 0], device=dev)
     dec = BatchDecoder(cfg, S, NBYTES, device="cuda")
     enc = BatchEncoder(cfg, S, NBYTES, device="cuda")
+    fenc = BatchEncoder(cfg, S, NBYTES, device="cuda", device_pack=True)
     steps_of = {"decode": lambda: dec.decode_tensor(pay),
-                "encode_dsp": lambda: enc.encode_fields_tensor(pcm)}
+                "encode_dsp": lambda: enc.encode_fields_tensor(pcm),
+                "encode_fused": lambda: fenc.encode_tensor(pcm)}
     out = {"card": card, "streams": S, "steps": steps}
     for name, fn in steps_of.items():
         for _ in range(3):
