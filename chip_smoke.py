@@ -13,11 +13,14 @@ stated:
    at once, then the host packer (native/lc3_bitstream.cc);
 3. kernels: each decode kernel against its plain PyTorch version on the
    card: parse on encoded frames mixed with random garbage (all 19 fields
-   equal), TNS synthesis on random lattices (equal), LTPF on random-state
-   stress inputs (<= 1e-3);
+   equal), TNS synthesis on random lattices (equal), LTPF (equal) on
+   random-state stress inputs at 48 kHz / 10 ms, 48 kHz / 7.5 ms and
+   8 kHz / 10 ms (S = 2048), at 48 kHz / 10 ms with S = 2047 and S = 1,
+   and on the arguments the decode step gives it for the bench content;
 4. enc-kernels: the four encoder kernels against their plain versions, on
    random inputs and on the inputs the encoder gives them for the bench
-   content (SNS PVQ, TNS autocorrelation, TNS analysis, bit model: equal);
+   content (SNS PVQ, TNS autocorrelation, TNS analysis, bit model: equal;
+   the autocorrelation also at S = 2047);
 4b. pack-kernels: the bit model with emit_pack against its plain version
    (and its table part against the one without), and the pack kernel
    against its plain version and the C++ host packer, on the fields of four
@@ -42,19 +45,26 @@ stated:
    encoder at S = 1, every frame equal to the oracle's bytes;
 8b. encode-fused-corpus: the same through BatchEncoder(device_pack=True);
 9. times: CUDA events after warm-up, median of 20: the fused decode step,
-   each kernel, its plain version and the library call where one exists.
+   each kernel, its plain version and the library call where one exists;
+   beside each kernel's (and the library call's) per-call event time, its
+   device time: the median duration of the kernel itself over 20 calls
+   under torch.profiler, without the wrapper's host work. LTPF is timed on
+   the stress inputs and on the decode step's own arguments; the
+   autocorrelation and torch.bmm alternate call by call, median of 200
+   each.
    The encode DSP step (CUDA events, host wall, thread CPU time), the
    whole encode with the host pack (host wall, thread CPU time) and the
    fused encode step (CUDA events, host wall) alternate over 20 reps, each
    given as median [min-max]; the C++ host packer alone on the fields of
    the fused step's bench batch, as a comparison (no PyTorch call packs).
 
-Then the card's line, one JSON line with the kernels (each with its bound:
-the larger of its bytes over 3.35 TB/s and its f32 operations over
-67 TFLOP/s, the H100 SXM's published peaks, counted from this run's
-inputs), and last the device line. Uses no JAX and nothing of the lc3jax
-package: the references are the stored goldens of tests/goldens
-(tools/gen_torch_encode_goldens.py made the bench content's).
+Then the card's line, one JSON line with the kernels (each with its event
+and device times and its bound: the larger of its bytes over 3.35 TB/s
+and its f32 operations over 67 TFLOP/s, the H100 SXM's published peaks,
+counted from this run's inputs), and last the device line. Uses no JAX
+and nothing of the lc3jax package: the references are the stored goldens
+of tests/goldens (tools/gen_torch_encode_goldens.py made the bench
+content's).
 """
 
 from __future__ import annotations
@@ -73,6 +83,7 @@ S_MAIN = 2048
 NBYTES = 150
 T_FRAMES = 12
 REPS = 20
+PAIR_REPS = 200  # the autocorrelation against torch.bmm, a few µs apart
 CORPUS = ["48000_10ms_120", "48000_10ms_20", "48000_10ms_400", "44100_7.5ms_100",
           "16000_10ms_60", "8000_10ms_40"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
@@ -106,6 +117,19 @@ def check_envelope(name: str, pcm, want) -> str:
     return f"{name}: max {max_lsb} LSB, SNR {snr:.1f} dB"
 
 
+def event_ms(fn) -> float:
+    """ms between CUDA events recorded around one call of fn."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
 def cuda_ms(fn, reps: int = REPS) -> float:
     """Median device time of fn() in ms, CUDA events around each call."""
     import torch
@@ -113,16 +137,23 @@ def cuda_ms(fn, reps: int = REPS) -> float:
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
+    return float(np.median([event_ms(fn) for _ in range(reps)]))
+
+
+def cuda_ms_pair(fa, fb, reps: int = REPS) -> tuple[float, float]:
+    """cuda_ms of fa and of fb, alternated call by call so that both see
+    the same host."""
+    import torch
+
+    for _ in range(3):
+        fa()
+        fb()
+    torch.cuda.synchronize()
+    ta, tb = [], []
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+        ta.append(event_ms(fa))
+        tb.append(event_ms(fb))
+    return float(np.median(ta)), float(np.median(tb))
 
 
 def encode_times(enc, fenc, pcm_host: np.ndarray, pcm_dev, reps: int = REPS) -> dict:
@@ -213,6 +244,35 @@ def nbytes_of(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def device_ms(fn, kernel: str | None, reps: int = REPS) -> float:
+    """Median device time in ms of one call of fn under torch.profiler: the
+    summed durations of the kernels named `kernel` (every kernel when None)
+    that each call launches, the wrapper's host work not included."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    named = re.compile(rf"(?<![A-Za-z_]){kernel}" if kernel else ".")
+    evs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and named.search(e.name)
+                 and not e.name.startswith(("Memcpy", "Memset")))
+    if not evs or len(evs) % reps:
+        raise AssertionError(f"profiler: {len(evs)} launches of {kernel or 'any kernel'} "
+                             f"in {reps} calls")
+    per = len(evs) // reps
+    return float(np.median([sum(b - a for a, b in evs[i : i + per])
+                            for i in range(0, len(evs), per)])) / 1e3
+
+
 def ltpf_stress(p, S: int, seed: int, device):
     """Random-state LTPF inputs in the pattern of tests/test_pallas_ltpf.py."""
     import torch
@@ -278,6 +338,27 @@ def capture_kernel_inputs(enc, pcm):
         for (m, n), orig in zip(spies, originals):
             setattr(m, n, orig)
     return seen
+
+
+def capture_ltpf_inputs(dec, frames):
+    """Decode the frames and keep the arguments the last decode step gave
+    the LTPF kernel."""
+    from lc3jax_torch.dsp import ltpf_kernel
+
+    seen = {}
+    orig = ltpf_kernel.ltpf_both_passes
+
+    def spy(*a, **kw):
+        seen["ltpf"] = a
+        return orig(*a, **kw)
+
+    ltpf_kernel.ltpf_both_passes = spy
+    try:
+        for f in frames:
+            dec.decode(f)
+    finally:
+        ltpf_kernel.ltpf_both_passes = orig
+    return seen["ltpf"]
 
 
 def equal_outputs(name: str, a, b) -> None:
@@ -368,16 +449,31 @@ def main() -> int:
     if not torch.equal(yk, yp):
         raise AssertionError(f"tns kernel != plain, max abs {errs['tns_synthesis']}")
 
+    # LTPF: the stress inputs of earlier runs (48 kHz / 10 ms at 150 B, where
+    # the new coefficients are zero), the three shapes of the paths at rates
+    # whose gain is on, the ragged edge, and the decode step's own arguments
     st, x_l, act_l, pi_l = ltpf_stress(tab.p, S_MAIN, 7, dev)
     lt_args = ltpf_pass_args(tab, st, x_l, act_l, pi_l)[0]
-    ka, kb = ltpf_kernel.ltpf_both_passes(*lt_args)
-    pa, pb = ltpf_kernel.ltpf_both_passes_plain(*lt_args)
-    errs["ltpf"] = max(float((ka - pa).abs().max()), float((kb - pb).abs().max()))
-    if errs["ltpf"] > 1e-3:
-        raise AssertionError(f"ltpf kernel vs plain: max abs {errs['ltpf']} > 1e-3")
+    lt_cases = {"48k/10ms 150B S=2048": lt_args}
+    for label, c, nb, S, seed in (("48k/10ms 75B", cfg, 75, S_MAIN, 8),
+                                  ("48k/7.5ms 56B", Lc3Config.new(48000, FrameDuration.MS7P5),
+                                   56, S_MAIN, 9),
+                                  ("8k/10ms 40B", Lc3Config.new(8000, FrameDuration.MS10),
+                                   40, S_MAIN, 10),
+                                  ("48k/10ms 75B S=2047", cfg, 75, S_MAIN - 1, 11),
+                                  ("48k/10ms 75B S=1", cfg, 75, 1, 12)):
+        t_c = decoder_tables(c, nb * 8, dev)
+        lt_cases[label] = ltpf_pass_args(t_c, *ltpf_stress(t_c.p, S, seed, dev))[0]
+    dec_probe = BatchDecoder(cfg, S_MAIN, NBYTES, device="cuda")
+    lt_main = capture_ltpf_inputs(dec_probe, [bench["frames"][tile, f] for f in range(2)])
+    lt_cases["decode step S=2048"] = lt_main
+    for label, a in lt_cases.items():
+        equal_outputs(f"ltpf ({label})", ltpf_kernel.ltpf_both_passes(*a),
+                      ltpf_kernel.ltpf_both_passes_plain(*a))
+    errs["ltpf"] = 0.0
     log("kernels", f"parse: 19 fields equal ({n_bad}/{S_MAIN} bad frames); "
                    f"tns: equal (max abs {errs['tns_synthesis']}); "
-                   f"ltpf: max abs {errs['ltpf']} (<= 1e-3)")
+                   f"ltpf: equal on {', '.join(lt_cases)}")
 
     # ---- 4. encoder kernels against their plain versions
     pcm_in = bench["pcm_in"]  # [4, T, nf]
@@ -411,11 +507,15 @@ def main() -> int:
                                 bitmodel_kernel.bitmodel_table_part_plain),
     }
     lines = []
+    ragged = {"tns_autocorr": (rnd[: S_MAIN - 1], etab.tns_sub[bw_r[: S_MAIN - 1]])}
     for name, (kern, plain) in enc_fns.items():
-        for label, args in (("random", random_args[name]), ("bench", real[name])):
+        cases = [("random", random_args[name]), ("bench", real[name])]
+        if name in ragged:
+            cases.append((f"random S={S_MAIN - 1}", ragged[name]))
+        for label, args in cases:
             equal_outputs(f"{name} ({label})", kern(*args), plain(*args))
         errs[name] = 0.0
-        lines.append(f"{name}: equal")
+        lines.append(f"{name}: equal" + (f" (also at S={S_MAIN - 1})" if name in ragged else ""))
     torch.cuda.synchronize()
     log("enc-kernels", "; ".join(lines) + " (random and bench inputs, S=2048)")
 
@@ -597,6 +697,9 @@ def main() -> int:
     bm_args = real["bitmodel_table_part"]
     emit = (cuda_ms(lambda: bitmodel_kernel.bitmodel_table_part(*bm_args, emit_pack=True)),
             cuda_ms(lambda: bitmodel_kernel.bitmodel_table_part_plain(*bm_args, emit_pack=True)))
+    lt_main_fn = lambda: ltpf_kernel.ltpf_both_passes(*lt_main)
+    lt_main_ms = [cuda_ms(lt_main_fn), None,
+                  cuda_ms(lambda: ltpf_kernel.ltpf_both_passes_plain(*lt_main))]
     host_ms = []
     for _ in range(REPS):
         t0 = time.perf_counter()
@@ -614,8 +717,12 @@ def main() -> int:
     work = ((b4[:, 1] - b4[:, 0]) * 4 * ro_s[:, 0] + (b4[:, 3] - b4[:, 2]) * 4 * ro_s[:, 1])
     bounds["tns_synthesis"] = bound(2 * nbytes_of(xs) + nbytes_of(bw_s, ro_s, ri_s),
                                     float(work.sum()))
-    lt_in = [a for a in lt_args if hasattr(a, "element_size")]
-    bounds["ltpf"] = bound(nbytes_of(*lt_in) + 2 * nbytes_of(x_l),
+    # the LTPF reads only xcat[:, H - l_num:] and hist_y[:, H - rb:] (the
+    # window tests/test_torch_ltpf.py pins), its other arguments whole, and
+    # writes yA and yB
+    _, xc_l, hy_l, *lt_rest, H_l, rb_l = lt_args
+    bounds["ltpf"] = bound(nbytes_of(xc_l[:, H_l - tab.p.l_num:], hy_l[:, H_l - rb_l:], *lt_rest)
+                           + 2 * nbytes_of(x_l),
                            2.0 * 2 * (tab.p.l_num + tab.p.l_den + 2) * x_l.numel())
     # PVQ: ~110 operations a greedy round over 16 lanes; the shape-3 rounds
     # this data needs, 2 for shape 2, at most 10 for shape 1; ~200 for the
@@ -669,7 +776,24 @@ def main() -> int:
     lagged = xw.unfold(1, Lw, 1)[:, :9].transpose(1, 2).contiguous()  # [S*6, Lw, 9]
     head = xw[:, None, :Lw].contiguous()
     library = {k: None for k in times}
-    library["tns_autocorr"] = cuda_ms(lambda: torch.bmm(head, lagged))
+    bmm = lambda: torch.bmm(head, lagged)
+    # the kernel and the library call alternated call by call over PAIR_REPS
+    # calls each (the host sets both event times, and moves), then each
+    # one's device time
+    ac_ms, library["tns_autocorr"] = cuda_ms_pair(
+        lambda: tns_enc_kernel.tns_autocorr(*real["tns_autocorr"]), bmm, PAIR_REPS)
+    times["tns_autocorr"] = (ac_ms, times["tns_autocorr"][1])
+    # each kernel's device time apart from its wrapper's host work, after
+    # every event time so that no profiler session precedes one
+    kernel_of = {"parse": "parse_kernel", "tns_synthesis": "tns_synthesis_kernel",
+                 "ltpf": "ltpf_kernel", "sns_pvq": "sns_pvq_kernel",
+                 "tns_autocorr": "tns_autocorr_kernel", "tns_analysis": "tns_analysis_kernel",
+                 "bitmodel_table_part": "bitmodel_kernel", "pack": "pack_kernel"}
+    dev_ms = {k: device_ms(lambda: kern(*a), kernel_of[k]) for k, (a, kern, _) in kargs.items()}
+    emit_dev = device_ms(lambda: bitmodel_kernel.bitmodel_table_part(*bm_args, emit_pack=True),
+                         "bitmodel_kernel")
+    lt_main_ms[1] = device_ms(lt_main_fn, "ltpf_kernel")
+    library_dev = {"tns_autocorr": device_ms(bmm, None)}
 
     rt = lambda ms: S_MAIN * (cfg.nf / cfg.fs) / (ms / 1e3)
     log("encode-times", f"{card}, S={S_MAIN}, {REPS} reps alternated, median [min-max] ms: "
@@ -679,11 +803,15 @@ def main() -> int:
                  f"encode with host pack {enc_wall:.4f} ms wall = {rt(enc_wall):.1f}x realtime; "
                  f"fused encode step {fused_ms:.4f} ms = {rt(fused_ms):.1f}x realtime "
                  f"(S={S_MAIN}, 48k/10ms/150B); "
-                 f"bitmodel_table_part with emit_pack kernel {emit[0]:.4f} ms vs plain "
-                 f"{emit[1]:.4f} ms, bound {emit_bound[0]:.5f} ms ({emit_bound[1]}); " + "; ".join(
-                     f"{k} kernel {a:.4f} ms vs plain {b:.4f} ms, bound {bounds[k][0]:.5f} ms "
-                     f"({bounds[k][1]})" + (f", library {library[k]:.4f} ms"
-                                            if library[k] is not None else "")
+                 f"bitmodel_table_part with emit_pack kernel {emit[0]:.4f} ms (device "
+                 f"{emit_dev:.4f}) vs plain {emit[1]:.4f} ms, bound {emit_bound[0]:.5f} ms "
+                 f"({emit_bound[1]}); ltpf on the decode step's arguments kernel "
+                 f"{lt_main_ms[0]:.4f} ms (device {lt_main_ms[1]:.4f}) vs plain "
+                 f"{lt_main_ms[2]:.4f} ms; " + "; ".join(
+                     f"{k} kernel {a:.4f} ms (device {dev_ms[k]:.4f}) vs plain {b:.4f} ms, "
+                     f"bound {bounds[k][0]:.5f} ms ({bounds[k][1]})"
+                     + (f", library {library[k]:.4f} ms (device {library_dev[k]:.4f})"
+                        if library[k] is not None else "")
                      for k, (a, b) in times.items()))
     log("host-pack", f"{card}: the C++ host packer (native/lc3_bitstream.cc, {host_pack.N_THREADS} "
                      f"threads) on the pack kernel's bench fields, S={S_MAIN}, 150 B: "
@@ -706,12 +834,17 @@ def main() -> int:
         {"name": names.get(k, k), "route": "cuda", "source": src + f, "replaces": r,
          "launches": launches[k], "max_abs_err": errs[k], "ms": times[k][0],
          "plain_ms": times[k][1], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-         "library_ms": library[k]}
+         "library_ms": library[k], "device_ms": dev_ms[k]}
         for k, (f, r) in meta.items()
     ]
     kernels[list(meta).index("bitmodel_table_part")].update(
         emit_pack_launches=fused["bitmodel emit_pack"], emit_pack_ms=emit[0],
-        emit_pack_plain_ms=emit[1], emit_pack_bound_ms=emit_bound[0])
+        emit_pack_device_ms=emit_dev, emit_pack_plain_ms=emit[1],
+        emit_pack_bound_ms=emit_bound[0])
+    kernels[list(meta).index("ltpf")].update(
+        decode_step_args_ms=lt_main_ms[0], decode_step_args_device_ms=lt_main_ms[1],
+        decode_step_args_plain_ms=lt_main_ms[2])
+    kernels[list(meta).index("tns_autocorr")].update(library_device_ms=library_dev["tns_autocorr"])
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -45,7 +45,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C signatures: name -> argtypes (every entry returns int, a cudaError_t)
 SIGNATURES = {
     "lc3t_tns_synthesis": [_PTR] * 5 + [_INT] * 2 + [_PTR],
-    "lc3t_ltpf_both_passes": [_PTR] * 15 + [_INT] * 7 + [_PTR],
+    "lc3t_ltpf_both_passes": [_PTR] * 13 + [_INT] * 7 + [_PTR],
     "lc3t_parse": [_PTR] * 22 + [_INT] * 5 + [_PTR],
     "lc3t_sns_pvq": [_PTR] * 8 + [_INT] + [_PTR],
     "lc3t_tns_autocorr": [_PTR] * 3 + [_INT] * 2 + [_PTR],
@@ -142,3 +142,23 @@ def stream_ptr(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name: str, index: int, *args) -> None:
+    """Call the C entry `name` with `args` and the raw handle of the current
+    stream of CUDA device `index`, made the current device around the call
+    only when it is not; raise on a non-zero code.
+
+    Kept to a few C calls (no Stream object, no device context on the usual
+    path): for a kernel of a few microseconds this host work is most of what
+    a caller waits for."""
+    import torch
+
+    fn = getattr(lib(), name)
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if err:
+        check(err, name)

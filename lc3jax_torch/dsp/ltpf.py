@@ -94,7 +94,7 @@ def ltpf_run(tab, st: LtpfState, x, nbits: int, active, pitch_index):
     y = torch.where(case_fade_out[:, None], torch.where(tab.in_fade[None, :], yA, x), y)
     new_state = LtpfState(
         hist_x=args[1][:, nf:],
-        hist_y=torch.cat([st.hist_y, y], dim=1)[:, nf:],
+        hist_y=torch.cat([st.hist_y[:, nf:], y], dim=1),  # contiguous, as the kernel takes it
         c_num=c_num,
         c_den=c_den,
         p_int=p_int,

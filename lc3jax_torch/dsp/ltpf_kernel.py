@@ -4,6 +4,14 @@ plain PyTorch version.
 Replaces lc3jax/dsp/pallas_ltpf.py:ltpf_both_passes_pallas, with its
 signature. A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises.
+
+On the H100 the filter is a serial chain of nf / B blocks per pass for each
+stream, so its time is latency, not bytes. The kernel gives each stream a
+half-warp (one lane per sample of a block) and keeps the stream's working
+row, input window and scratch in shared memory; it reads the arguments in
+their own [S, len] layout and computes the offsets itself, so the wrapper
+below checks, allocates the two outputs and makes one launch (no
+transposes, casts or offset launches on the card).
 """
 
 from __future__ import annotations
@@ -50,58 +58,39 @@ def ltpf_both_passes_plain(p, xcat, hist_y, c_num_a, c_den_a, p_int_a,
 
 def ltpf_both_passes(p, xcat, hist_y, c_num_a, c_den_a, p_int_a, c_num_b, c_den_b,
                      p_int_b, fade_down, fadeB, use_scratch, H: int, rb: int):
-    """Returns (yA [S, nf], yB [S, nf]) f32 for any S >= 1."""
+    """Returns (yA [S, nf], yB [S, nf]) f32 for any S >= 1.
+
+    On the card every argument is taken as it comes, C-contiguous in its
+    own [S, len] layout (p_int_* int32, use_scratch bool); anything else
+    raises. The kernel computes the offsets and reads only the window it
+    needs, so this wrapper issues one launch and nothing else."""
     if H < rb:
         raise ValueError(f"ltpf_both_passes: history {H} shorter than reach-back {rb}")
-    if xcat.device.type == "cpu":
-        return ltpf_both_passes_plain(p, xcat, hist_y, c_num_a, c_den_a, p_int_a,
-                                      c_num_b, c_den_b, p_int_b, fade_down, fadeB,
-                                      use_scratch, H, rb)
-    if xcat.device.type != "cuda":
+    if not xcat.is_cuda:
+        if xcat.device.type == "cpu":
+            return ltpf_both_passes_plain(p, xcat, hist_y, c_num_a, c_den_a, p_int_a,
+                                          c_num_b, c_den_b, p_int_b, fade_down, fadeB,
+                                          use_scratch, H, rb)
         raise ValueError(f"ltpf_both_passes: unsupported device {xcat.device}")
     global launches
     nf, l_num, l_den = p.nf, p.l_num, p.l_den
     S = xcat.shape[0]
-    B = 16 if nf % 16 == 0 else 15
-    dev = xcat.device
-    f32_shapes = {
-        "xcat": (xcat, (S, H + nf)), "hist_y": (hist_y, (S, H)),
-        "c_num_a": (c_num_a, (S, l_num + 1)), "c_den_a": (c_den_a, (S, l_den + 1)),
-        "c_num_b": (c_num_b, (S, l_num + 1)), "c_den_b": (c_den_b, (S, l_den + 1)),
-        "fade_down": (fade_down, (nf,)), "fadeB": (fadeB, (S, nf)),
-    }
-    for name, (t, shape) in f32_shapes.items():
-        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"ltpf_both_passes: {name} must be float32 {shape} on {dev}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    for name, t in (("p_int_a", p_int_a), ("p_int_b", p_int_b), ("use_scratch", use_scratch)):
-        if t.device != dev or t.shape[0] != S:
-            raise ValueError(f"ltpf_both_passes: {name} must have {S} rows on {dev}")
-
-    ceil_half = l_den - l_den // 2
-    off_a = torch.clamp(rb - p_int_a - ceil_half, 0, rb).to(torch.int32).contiguous()
-    off_b = torch.clamp(rb - p_int_b - ceil_half, 0, rb).to(torch.int32).contiguous()
-    # streams on the fast axis: a warp's loads of one sample are coalesced
-    xcat_t = xcat.t().contiguous()
-    hist_t = hist_y.t().contiguous()
-    fadeB_t = fadeB.t().contiguous()
-    sel_t = use_scratch.t().to(torch.int32).contiguous()
-    cna, cda = c_num_a.contiguous(), c_den_a.contiguous()
-    cnb, cdb = c_num_b.contiguous(), c_den_b.contiguous()
-    fd = fade_down.contiguous()
-    ycat_t = torch.empty((H + nf + l_den, S), dtype=torch.float32, device=dev)
-    sbuf_t = torch.empty((l_num + nf, S), dtype=torch.float32, device=dev)
-    ya_t = torch.empty((nf, S), dtype=torch.float32, device=dev)
-    yb_t = torch.empty((nf, S), dtype=torch.float32, device=dev)
-    lib = _build.lib()
-    with torch.cuda.device(dev):
-        err = lib.lc3t_ltpf_both_passes(
-            xcat_t.data_ptr(), hist_t.data_ptr(), cna.data_ptr(), cda.data_ptr(),
-            off_a.data_ptr(), cnb.data_ptr(), cdb.data_ptr(), off_b.data_ptr(),
-            fd.data_ptr(), fadeB_t.data_ptr(), sel_t.data_ptr(), ycat_t.data_ptr(),
-            sbuf_t.data_ptr(), ya_t.data_ptr(), yb_t.data_ptr(),
-            S, H, nf, B, l_num, l_den, rb, _build.stream_ptr(dev),
-        )
-    _build.check(err, "lc3t_ltpf_both_passes")
+    index = xcat.get_device()
+    f32, i32 = torch.float32, torch.int32
+    args = (("xcat", xcat, f32, (S, H + nf)), ("hist_y", hist_y, f32, (S, H)),
+            ("c_num_a", c_num_a, f32, (S, l_num + 1)), ("c_den_a", c_den_a, f32, (S, l_den + 1)),
+            ("p_int_a", p_int_a, i32, (S,)),
+            ("c_num_b", c_num_b, f32, (S, l_num + 1)), ("c_den_b", c_den_b, f32, (S, l_den + 1)),
+            ("p_int_b", p_int_b, i32, (S,)), ("fade_down", fade_down, f32, (nf,)),
+            ("fadeB", fadeB, f32, (S, nf)), ("use_scratch", use_scratch, torch.bool, (S, nf)))
+    for name, t, dtype, shape in args:
+        if t.dtype != dtype or t.shape != shape or t.get_device() != index or not t.is_contiguous():
+            raise ValueError(f"ltpf_both_passes: {name} must be a contiguous {dtype} {shape} "
+                             f"on {xcat.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    ya = xcat.new_empty((S, nf))  # xcat's type and device, without parsing them again
+    yb = xcat.new_empty((S, nf))
+    _build.launch("lc3t_ltpf_both_passes", index, *(t.data_ptr() for _, t, _, _ in args),
+                  ya.data_ptr(), yb.data_ptr(), S, H, nf, 16 if nf % 16 == 0 else 15,
+                  l_num, l_den, rb)
     launches += 1
-    return ya_t.t(), yb_t.t()
+    return ya, yb

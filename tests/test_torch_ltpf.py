@@ -105,3 +105,40 @@ def test_ltpf_wrapper_takes_plain_for_cpu(goldens):
     assert ltpf_kernel.launches == before
     pa, pb = ltpf_kernel.ltpf_both_passes_plain(*args)
     assert torch.equal(ya, pa) and torch.equal(yb, pb)
+
+
+@pytest.mark.parametrize("fs,dur,nbytes", [(48000, FrameDuration.MS10, 75),
+                                           (48000, FrameDuration.MS7P5, 56),
+                                           (8000, FrameDuration.MS10, 40)])
+def test_ltpf_passes_read_only_the_window_the_kernel_stages(fs, dur, nbytes):
+    """Both passes read hist_y only from H - rb on and xcat only from
+    H - l_num on (the window csrc/ltpf.cu keeps in shared memory): random
+    values before it leave the outputs bit-identical. Random-state inputs
+    with pitch lags 18..855 and, in the first stream, the longest lag the
+    geometry has, so its offset reaches H - rb exactly."""
+    tab = decoder_tables(Lc3Config.new(fs, dur), nbytes * 8)
+    p = tab.p
+    H = p.num_mem_blocks * p.nf
+    S = 16
+    rng = np.random.default_rng(fs + nbytes)
+    f = lambda *shape, scale: torch.as_tensor((rng.standard_normal(shape) * scale).astype(np.float32))
+    lags = rng.integers(18, 856, S).astype(np.int32)
+    lags[0] = TL._reach_back(p) - (p.l_den - p.l_den // 2)
+    st = TL.LtpfState(
+        hist_x=f(S, H, scale=1000), hist_y=f(S, H, scale=1000),
+        c_num=f(S, p.l_num + 1, scale=0.2), c_den=f(S, p.l_den + 1, scale=0.2),
+        p_int=torch.as_tensor(lags),
+        p_fr=torch.as_tensor(rng.integers(0, 4, S).astype(np.int32)),
+        active=torch.as_tensor(rng.integers(0, 2, S).astype(bool)))
+    args = list(TL.ltpf_pass_args(tab, st, f(S, p.nf, scale=2000),
+                                  torch.as_tensor(rng.integers(0, 2, S).astype(bool)),
+                                  torch.as_tensor(rng.integers(0, 512, S).astype(np.int32)))[0])
+    rb = args[-1]
+    want = ltpf_kernel.ltpf_both_passes_plain(*args)
+    args[1] = args[1].clone()
+    args[1][:, : H - p.l_num] = f(S, H - p.l_num, scale=1e6)
+    args[2] = args[2].clone()
+    args[2][:, : H - rb] = f(S, H - rb, scale=1e6)
+    got = ltpf_kernel.ltpf_both_passes_plain(*args)
+    for g_, w in zip(got, want):
+        assert np.array_equal(g_.numpy().view(np.int32), w.numpy().view(np.int32))

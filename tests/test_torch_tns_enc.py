@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from lc3jax.ref.fp import seq_sum
 from lc3jax_torch.config import FrameDuration, Lc3Config
 from lc3jax_torch.convert import encoder_tables
 from lc3jax_torch.dsp import encoder as E
@@ -102,3 +103,22 @@ def test_tns_wrappers_take_plain_for_cpu_and_refuse_other_devices(gold):
         K.tns_autocorr(x.to("meta"), sub)
     with pytest.raises(ValueError, match="unsupported device"):
         K.tns_analysis(args[0].to("meta"), *args[1:])
+
+
+@pytest.mark.parametrize("fs,dur,bw", [(48000, FrameDuration.MS10, b) for b in range(5)]
+                         + [(8000, FrameDuration.MS7P5, 0)])
+def test_tns_autocorr_plain_is_the_oracles_fold(fs, dur, bw):
+    """Each lag sum equals, bit for bit, the oracle's per-lag seq_sum of the
+    rounded products (lc3jax/ref/tns_enc.py:_autocorrelation), which
+    csrc/tns_autocorr.cu folds in the same order."""
+    cfg = Lc3Config.new(fs, dur)
+    sub = encoder_tables(cfg, 1200).tns_sub[torch.full((4,), bw)]
+    rng = np.random.default_rng(10 * bw + cfg.fs_ind)
+    x = (rng.standard_normal((4, cfg.ne)) * 10 ** rng.uniform(0, 3, (4, 1))).astype(F32)
+    got = K.tns_autocorr_plain(torch.as_tensor(x), sub).numpy()
+    want = np.zeros((4, 2, 3, 9), F32)
+    for s, f, b, k in np.ndindex(4, 2, 3, 9):
+        lo, hi = sub[s, f, b].tolist()
+        if lo + k < hi:
+            want[s, f, b, k] = seq_sum(x[s, lo : hi - k] * x[s, lo + k : hi])
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
