@@ -46,7 +46,7 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "lc3t_tns_synthesis": [_PTR] * 5 + [_INT] * 2 + [_PTR],
     "lc3t_ltpf_both_passes": [_PTR] * 13 + [_INT] * 7 + [_PTR],
-    "lc3t_parse": [_PTR] * 22 + [_INT] * 5 + [_PTR],
+    "lc3t_parse": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     "lc3t_sns_pvq": [_PTR] * 8 + [_INT] + [_PTR],
     "lc3t_tns_autocorr": [_PTR] * 3 + [_INT] * 2 + [_PTR],
     "lc3t_tns_analysis": [_PTR] * 5 + [_INT] * 2 + [_PTR],
@@ -136,12 +136,6 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = lib().lc3t_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA launch failed ({code}: {msg})")
-
-
-def stream_ptr(device) -> int:
-    import torch
-
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 def launch(name: str, index: int, *args) -> None:

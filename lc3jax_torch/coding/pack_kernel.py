@@ -1,9 +1,10 @@
 """LC3 frame assembly on tensors: the encoder's fields -> frame bytes (port
 of lc3jax/coding/pallas_pack.py:device_pack).
 
-`device_pack` routes a CUDA tensor to the pack kernel (csrc/pack.cu, one
-thread per stream, a scalar transcription of the repo's host packer
-native/lc3_bitstream.cc:pack_one) and a CPU tensor to `device_pack_plain`.
+`device_pack` routes a CUDA tensor to the pack kernel (csrc/pack.cu, a lane
+per stream coding into a row in shared memory, a scalar transcription of the
+repo's host packer native/lc3_bitstream.cc:pack_one) and a CPU tensor to
+`device_pack_plain`.
 
 The plain version is a second, independent formulation: it follows the TPU
 kernel's lane-parallel scheme, every stream a lane of an [S] int64 tensor.
@@ -384,13 +385,9 @@ def device_pack(cfg: Lc3Config, nbytes: int, fields: dict) -> torch.Tensor:
     xq_c, res_c, pk_c = x_q.contiguous(), res.contiguous(), pk.contiguous()
     side = side_rows(fields)
     tab = _tables(x_q.device)
-    out = torch.empty(S, nbytes, dtype=torch.uint8, device=x_q.device)
-    with torch.cuda.device(x_q.device):
-        err = _build.lib().lc3t_pack(
-            xq_c.data_ptr(), res_c.data_ptr(), side.data_ptr(), pk_c.data_ptr(), tab.data_ptr(),
-            out.data_ptr(), S, ne, nbytes, NBITS_BW[cfg.fs_ind], lpc_weighting(cfg, nbytes),
-            _build.stream_ptr(x_q.device),
-        )
-    _build.check(err, "lc3t_pack")
+    out = res_c.new_empty((S, nbytes), dtype=torch.uint8)
+    _build.launch("lc3t_pack", x_q.get_device(), xq_c.data_ptr(), res_c.data_ptr(),
+                  side.data_ptr(), pk_c.data_ptr(), tab.data_ptr(), out.data_ptr(), S, ne,
+                  nbytes, NBITS_BW[cfg.fs_ind], lpc_weighting(cfg, nbytes))
     launches += 1
     return out

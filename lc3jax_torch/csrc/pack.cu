@@ -1,7 +1,8 @@
-// LC3 frame assembly (encoder): the encoder's fields -> frame bytes, one
-// thread per stream, the whole frame in the kernel: the backward side-info
-// and tail bit writer, the forward range encoder over the TNS and spectral
-// symbols, the residual or LSB fill of the gap, and the coder's finish.
+// LC3 frame assembly (encoder): the encoder's fields -> frame bytes, the
+// whole frame in one launch, a warp a stream and 16 streams a block: the
+// backward side-info and tail bit writer, the forward range encoder over the
+// TNS and spectral symbols, the residual or LSB fill of the gap, and the
+// coder's finish.
 //
 // Replaces the Pallas kernel lc3jax/coding/pallas_pack.py:_pack_kernel
 // (launched by _run_pack_kernel, entries device_pack and encode_bytes_step).
@@ -16,9 +17,9 @@
 //
 // Not ported, because they worked around the TPU's lanes and VMEM: the
 // optimistic slot writes with carried-group marks and end-of-frame fix-ups
-// (a GPU thread keeps the reference's cache and carry_count), the head ring,
+// (a GPU lane keeps the reference's cache and carry_count), the head ring,
 // the i16-pair x_q and 32-per-word residual packing, and the batch-max trip
-// bounds (each thread loops to its own lastnz_trunc). The LSB queue is not
+// bounds (each lane loops to its own lastnz_trunc). The LSB queue is not
 // kept either: after the spectral pass, when the budget is known, a second
 // walk over the tuples regenerates it in order, as the TPU kernel did.
 //
@@ -29,20 +30,35 @@
 //
 // What bounds it on the H100: each stream is a serial chain of range-coder
 // symbols (18 TNS symbols at most, then per tuple its escapes and its final
-// symbol) with byte writes; at S = 2048 one thread per stream is 16 blocks
-// of 128 threads, about 12% of the 132 SMs. The kernel is latency-bound on
-// that chain; its bytes (x_q and the operands, read once) are a few MB. The
-// row is written byte by byte straight to device memory; staging it in
-// shared memory is left for a later change.
+// symbol) with byte writes, so the kernel is bound by the chains; its bytes
+// (x_q and the operands, read once) are a few MB. On the previous design
+// (commit 308f410: one thread a stream, its row zeroed and written byte by
+// byte in device memory, x_q and the operands read there) the symbol loop
+// took three quarters of the kernel at about 1,000 cycles a symbol, and the
+// row zeroing a tenth (tools/kernel_phases.py); a lane a stream with every
+// operand on chip still diverged at every escape and renormalisation. So here a warp a stream, 16
+// streams a block (128 blocks of 512 threads at S = 2048): the block copies
+// its 16 x_q rows and residual bits (16-byte loads) and the operand rows of
+// its coded tuples (eight loads in flight a thread) into shared memory and
+// zeroes its 16 output rows there; lane 0 of each warp codes its stream's
+// frame into its row with no lane to diverge from, the SM interleaving the
+// block's 16 chains; the block writes the rows out as one linear copy (a
+// block's rows are contiguous in the output).
 //
 // Integer arithmetic throughout: equal to the plain version
 // (lc3jax_torch/coding/pack_kernel.py) bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "block_copy.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+using lc3t::align16;
+using lc3t::block_copy;
+
+constexpr int kStreams = 16;              // streams a block, a warp each
+constexpr int kThreads = 32 * kStreams;
 
 // offsets into the int32 table buffer (see lc3jax_torch/coding/pack_kernel.py)
 constexpr int kOrderCum = 0;     // [2][8]
@@ -167,24 +183,19 @@ struct RangeEnc {
   }
 };
 
-__global__ void pack_kernel(const int* __restrict__ xq_all, const uint8_t* __restrict__ res_all,
-                            const int* __restrict__ side, const int* __restrict__ pk,
-                            const int* __restrict__ tab, uint8_t* __restrict__ out, int S,
-                            int ne, int nbytes, int nbits_bw, int lpcw) {
-  __shared__ int s_tab[kTableWords];
-  for (int i = threadIdx.x; i < kTableWords; i += blockDim.x) s_tab[i] = tab[i];
-  __syncthreads();
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= S) return;
+// One stream's frame into its zeroed row (shared memory): xq and res its
+// staged rows, ops its column of the staged operands ([5][NT] at a stride of
+// kStreams), side_s its column of the side matrix (a stride of S).
+__device__ void code_frame(uint8_t* row, const int* xq, const uint8_t* res, const int* ops,
+                           const int* side_s, const int* s_tab, int S, int ne, int nbytes,
+                           int nbits_bw, int lpcw) {
   const int NT = ne / 2;
-  const int* xq = xq_all + (long)s * ne;
-  const uint8_t* res = res_all + (long)s * ne;
-  auto field = [&](int row) { return side[(long)row * S + s]; };
+  auto field = [&](int r) { return side_s[(size_t)r * S]; };
+  auto operand = [&](int r, int n) { return ops[(r * NT + n) * kStreams]; };
 
   Writer w;
-  w.buf = out + (long)s * nbytes;
+  w.buf = row;
   w.len = nbytes;
-  for (int i = 0; i < nbytes; ++i) w.buf[i] = 0;
 
   const int lastnz = clampi(field(kLastnz), 0, ne) & ~1;
   const bool lsb_mode = field(kLsbMode) != 0;
@@ -241,7 +252,7 @@ __global__ void pack_kernel(const int* __restrict__ xq_all, const uint8_t* __res
     const uint32_t a0 = a, b0 = b;
     int lev = 0;
     for (; lev < 32 && (a >= 4 || b >= 4); ++lev) {
-      const int v = pk[((long)(lev < 3 ? lev : 3) * NT + n) * S + s];
+      const int v = operand(lev < 3 ? lev : 3, n);
       st.encode(w, v & 1023, uint32_t(v) >> 10);
       if (!(lsb_mode && lev == 0)) {
         w.bool_backward(a & 1);
@@ -250,7 +261,7 @@ __global__ void pack_kernel(const int* __restrict__ xq_all, const uint8_t* __res
       a >>= 1;
       b >>= 1;
     }
-    const int v = pk[((long)4 * NT + n) * S + s];
+    const int v = operand(4, n);
     st.encode(w, v & 1023, uint32_t(v) >> 10);
     const bool halve = lsb_mode && lev > 0;
     if ((halve ? a0 >> 1 : a0) > 0) w.bool_backward(xq[k] <= 0);
@@ -291,6 +302,64 @@ __global__ void pack_kernel(const int* __restrict__ xq_all, const uint8_t* __res
   w.final_flush();
 }
 
+__global__ void __launch_bounds__(kThreads) pack_kernel(
+    const int* __restrict__ xq_all, const uint8_t* __restrict__ res_all,
+    const int* __restrict__ side, const int* __restrict__ pk, const int* __restrict__ tab,
+    uint8_t* __restrict__ out, int S, int ne, int nbytes, int nbits_bw, int lpcw) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int s_tab[kTableWords];
+  __shared__ int s_nt;  // the block's most coded tuples
+  const int NT = ne / 2;
+  int* xs = reinterpret_cast<int*>(smem);  // x_q rows [kStreams][ne]
+  int* pks = xs + kStreams * ne;           // operands [5][NT][kStreams]
+  uint8_t* rows = reinterpret_cast<uint8_t*>(pks + 5 * NT * kStreams);  // [kStreams][nbytes]
+  uint8_t* res_s = rows + align16(kStreams * nbytes);                  // [kStreams][ne]
+
+  const int s0 = blockIdx.x * kStreams;
+  const int nvalid = min(kStreams, S - s0);
+  const int tid = threadIdx.x;
+
+  // ---- stage: tables, x_q rows, residual bits; the output rows start at 0
+  if (tid == 0) s_nt = 0;
+  for (int i = tid; i < kTableWords; i += kThreads) s_tab[i] = tab[i];
+  block_copy(reinterpret_cast<uint8_t*>(xs), reinterpret_cast<const uint8_t*>(xq_all + (size_t)s0 * ne),
+             nvalid * ne * 4);
+  block_copy(res_s, res_all + (size_t)s0 * ne, nvalid * ne);
+  for (int i = tid; i < align16(kStreams * nbytes) / 16; i += kThreads)
+    reinterpret_cast<uint4*>(rows)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  if (tid < nvalid) atomicMax(&s_nt, clampi(side[(size_t)kLastnz * S + s0 + tid], 0, ne) >> 1);
+  __syncthreads();
+  // the operand rows of the tuples any stream of the block codes, 64 bytes
+  // a (row, tuple); eight loads in flight a thread
+  const int per_row = s_nt * kStreams;
+  for (int j0 = tid; j0 < 5 * per_row; j0 += 8 * kThreads) {
+    int v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int j = j0 + q * kThreads;
+      const int r = j / per_row, rem = j - r * per_row;
+      const int n = rem / kStreams, c = rem % kStreams;
+      v[q] = j < 5 * per_row && c < nvalid ? pk[(size_t)(r * NT + n) * S + s0 + c] : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int j = j0 + q * kThreads;
+      const int r = j / per_row, rem = j - r * per_row;
+      if (j < 5 * per_row) pks[r * NT * kStreams + rem] = v[q];
+    }
+  }
+  __syncthreads();
+
+  // lane 0 of warp u codes stream s0 + u
+  const int u = tid >> 5;
+  if ((tid & 31) == 0 && u < nvalid)
+    code_frame(rows + u * nbytes, xs + u * ne, res_s + u * ne, pks + u, side + s0 + u, s_tab, S,
+               ne, nbytes, nbits_bw, lpcw);
+  __syncthreads();
+  block_copy(out + (size_t)s0 * nbytes, rows, nvalid * nbytes);
+}
+
 }  // namespace
 
 // xq: [S, ne] i32; res: [S, ne] u8 (0/1); side: [kSideRows = 34, S] i32 (the
@@ -300,9 +369,16 @@ __global__ void pack_kernel(const int* __restrict__ xq_all, const uint8_t* __res
 extern "C" int lc3t_pack(const int* xq, const uint8_t* res, const int* side, const int* pk,
                          const int* tab, uint8_t* out, int S, int ne, int nbytes,
                          int nbits_bw, int lpcw, void* stream) {
-  const int blocks = (S + kThreads - 1) / kThreads;
-  if (blocks == 0) return 0;
-  pack_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (S < 1 || ne < 2 || nbytes < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(int) * (size_t)kStreams * (ne + 5 * (ne / 2)) +
+                      align16(kStreams * nbytes) + (size_t)kStreams * ne;
+  {  // above 48 KB only once allowed (98 KB at 48 kHz / 10 ms / 150 B)
+    const cudaError_t err = cudaFuncSetAttribute(
+        pack_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (S + kStreams - 1) / kStreams;
+  pack_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       xq, res, side, pk, tab, out, S, ne, nbytes, nbits_bw, lpcw);
   return static_cast<int>(cudaGetLastError());
 }

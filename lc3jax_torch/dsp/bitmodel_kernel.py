@@ -103,16 +103,12 @@ def bitmodel_table_part(c, g, sym, rate_flag: int, ne: int, lastnz, emit_pack: b
     c32, g32, sym32, lnz32 = (t.contiguous() for t in (c, g, sym, lastnz))
     lut, bits = tables(c.device)
     cum, frq = coder_tables(c.device)
-    out = torch.empty(S, NT, dtype=torch.int32, device=c.device)
-    pk = torch.empty(5 * NT, S, dtype=torch.int32, device=c.device) if emit_pack else None
-    with torch.cuda.device(c.device):
-        err = _build.lib().lc3t_bitmodel(
-            c32.data_ptr(), g32.data_ptr(), sym32.data_ptr(), lnz32.data_ptr(),
-            lut.data_ptr(), bits.data_ptr(), cum.data_ptr(), frq.data_ptr(), out.data_ptr(),
-            pk.data_ptr() if emit_pack else None, S, NT, ne // 4, rate_flag,
-            _build.stream_ptr(c.device),
-        )
-    _build.check(err, "lc3t_bitmodel")
+    out = c32.new_empty((S, NT))
+    pk = c32.new_empty((5 * NT, S)) if emit_pack else None
+    _build.launch("lc3t_bitmodel", c.get_device(), c32.data_ptr(), g32.data_ptr(),
+                  sym32.data_ptr(), lnz32.data_ptr(), lut.data_ptr(), bits.data_ptr(),
+                  cum.data_ptr(), frq.data_ptr(), out.data_ptr(),
+                  pk.data_ptr() if emit_pack else None, S, NT, ne // 4, rate_flag)
     launches += 1
     if emit_pack:
         emit_launches += 1

@@ -173,19 +173,15 @@ def sns_pvq(t2rot: torch.Tensor):
     global launches
     S = t2rot.shape[0]
     x = t2rot.contiguous()
-    dev = x.device
-    y_sel = torch.empty(S, 16, dtype=torch.int32, device=dev)
-    y0s = torch.empty_like(y_sel)
-    xq_sel = torch.empty(S, 16, dtype=torch.float32, device=dev)
-    shape_j = torch.empty(S, dtype=torch.int32, device=dev)
-    gind = torch.empty_like(shape_j)
-    g_sel = torch.empty(S, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _build.lib().lc3t_sns_pvq(
-            x.data_ptr(), y_sel.data_ptr(), y0s.data_ptr(), xq_sel.data_ptr(),
-            shape_j.data_ptr(), gind.data_ptr(), g_sel.data_ptr(), _gains(dev).data_ptr(), S,
-            _build.stream_ptr(dev),
-        )
-    _build.check(err, "lc3t_sns_pvq")
+    i32 = torch.int32
+    y_sel = x.new_empty((S, 16), dtype=i32)
+    y0s = x.new_empty((S, 16), dtype=i32)
+    xq_sel = x.new_empty((S, 16))
+    shape_j = x.new_empty((S,), dtype=i32)
+    gind = x.new_empty((S,), dtype=i32)
+    g_sel = x.new_empty((S,))
+    _build.launch("lc3t_sns_pvq", x.get_device(), x.data_ptr(), y_sel.data_ptr(), y0s.data_ptr(),
+                  xq_sel.data_ptr(), shape_j.data_ptr(), gind.data_ptr(), g_sel.data_ptr(),
+                  _gains(x.device).data_ptr(), S)
     launches += 1
     return y_sel, y0s, xq_sel, shape_j, gind, g_sel

@@ -152,12 +152,8 @@ def tns_analysis(x, bounds, rc_order, num_filters, rc_q):
     b = bounds.reshape(S, 4).contiguous()
     rc = rc_q.contiguous()
     x_t = x.t().contiguous()  # [ne, S]: streams on the fast axis
-    out_t = torch.empty_like(x_t)
-    with torch.cuda.device(x.device):
-        err = _build.lib().lc3t_tns_analysis(
-            x_t.data_ptr(), rc.data_ptr(), b.data_ptr(), order.data_ptr(),
-            out_t.data_ptr(), S, ne, _build.stream_ptr(x.device),
-        )
-    _build.check(err, "lc3t_tns_analysis")
+    out_t = x_t.new_empty((ne, S))
+    _build.launch("lc3t_tns_analysis", x.get_device(), x_t.data_ptr(), rc.data_ptr(),
+                  b.data_ptr(), order.data_ptr(), out_t.data_ptr(), S, ne)
     analysis_launches += 1
     return out_t.t()

@@ -76,12 +76,8 @@ def tns_synthesis(tab, x, bandwidth, rc_order, rc_i):
     bounds, rc_q, order = _operands(tab, bandwidth, rc_order, rc_i)
     bounds, rc_q, order = bounds.contiguous(), rc_q.contiguous(), order.contiguous()
     x_t = x.t().contiguous()  # [ne, S]: streams on the fast axis
-    out_t = torch.empty_like(x_t)
-    with torch.cuda.device(x.device):
-        err = _build.lib().lc3t_tns_synthesis(
-            x_t.data_ptr(), rc_q.data_ptr(), bounds.data_ptr(), order.data_ptr(),
-            out_t.data_ptr(), S, ne, _build.stream_ptr(x.device),
-        )
-    _build.check(err, "lc3t_tns_synthesis")
+    out_t = x_t.new_empty((ne, S))
+    _build.launch("lc3t_tns_synthesis", x.get_device(), x_t.data_ptr(), rc_q.data_ptr(),
+                  bounds.data_ptr(), order.data_ptr(), out_t.data_ptr(), S, ne)
     launches += 1
     return out_t.t()

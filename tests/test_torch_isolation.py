@@ -138,3 +138,36 @@ def test_chip_smoke_fails_alone(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+_ENTRY_CALL = re.compile(r"\blc3t_\w+\(")
+_LAUNCH = re.compile(r'_build\.launch\(\s*"(lc3t_\w+)"')
+
+
+def test_wrappers_share_one_launch_path():
+    """Every kernel wrapper launches through `_build.launch` and allocates
+    from an input with `new_empty`: no module calls a C entry itself, builds a
+    Stream object (`_build.stream_ptr` is gone), enters `torch.cuda.device`
+    (only `_build.launch` does, for a tensor off the current device) or
+    allocates with `torch.empty`."""
+    from lc3jax_torch import _build
+
+    build_src = (ROOT / "lc3jax_torch" / "_build.py").read_text()
+    assert not hasattr(_build, "stream_ptr") and "stream_ptr" not in build_src
+    launch_body = build_src[build_src.index("def launch("):]
+    assert build_src.count("torch.cuda.device(") == launch_body.count("torch.cuda.device(") == 1
+    launched = set()
+    for f in sorted((ROOT / "lc3jax_torch").rglob("*.py")):
+        if f.name == "_build.py":
+            continue
+        src = f.read_text()
+        name = str(f.relative_to(ROOT))
+        for bad in ("stream_ptr", "torch.cuda.device(", "torch.empty(", "empty_like(",
+                    "current_stream(", "_build.lib()"):
+            assert bad not in src, (name, bad)
+        assert not _ENTRY_CALL.search(_LAUNCH.sub("", src)), name
+        found = _LAUNCH.findall(src)
+        launched.update(found)
+        if found:
+            assert "new_empty(" in src, name
+    assert launched == set(_build.SIGNATURES), launched ^ set(_build.SIGNATURES)

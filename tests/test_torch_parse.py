@@ -7,6 +7,8 @@ through as one batch). On corrupt frames the parsers agree on bad_frame.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,6 +25,7 @@ from lc3jax_torch.coding.device import device_parse, device_parse_plain
 from test_corpus import GEOMETRIES, _cfg
 
 CFG48 = Lc3Config.new(48000, FrameDuration.MS10)
+ROOT = Path(__file__).resolve().parent.parent
 J48 = JLc3Config.new(48000, JFrameDuration.MS10)
 
 
@@ -99,10 +102,99 @@ def test_device_parse_takes_plain_for_cpu(goldens):
 
 
 def test_kernel_table_buffer_layout():
-    """csrc/parse.cu reads the tables at fixed offsets."""
+    """csrc/parse.cu reads its tables from one byte image at fixed offsets:
+    each part, viewed at its narrow type, is the JAX package's table."""
     from lc3jax import tables as T
 
-    buf = parse_kernel.table_buffer()
-    assert buf.shape == (parse_kernel.TABLE_WORDS,) and buf.dtype == np.int32
-    assert np.array_equal(buf[2176:6272], T.AC_SPEC_LOOKUP)
-    assert np.array_equal(buf[6576:].reshape(16, 11), T.MPVQ_OFFSETS)
+    img = parse_kernel.table_image()
+    assert img.shape == (parse_kernel.TABLE_BYTES,) and img.dtype == np.uint8
+    assert np.array_equal(img[:4096], T.AC_SPEC_LOOKUP)
+    assert np.array_equal(img[6432:].view(np.int32).reshape(16, 11), T.MPVQ_OFFSETS)
+
+
+def _image_part(name):
+    img = parse_kernel.table_image()
+    parts = {n: (dtype, off) for n, _, dtype, off in parse_kernel.TABLE_LAYOUT}
+    offs = sorted(off for _, off in parts.values()) + [parse_kernel.TABLE_BYTES]
+    dtype, off = parts[name]
+    return img[off : offs[offs.index(off) + 1]].view(dtype).astype(np.int64)
+
+
+@pytest.mark.parametrize("name, cum, freq, rows", [
+    ("spec_cum", "AC_SPEC_CUMFREQ", "AC_SPEC_FREQ", 64),
+    ("coef_cum", "AC_TNS_COEF_CUMFREQ", "AC_TNS_COEF_FREQ", 8),
+    ("order_cum", "AC_TNS_ORDER_CUMFREQ", "AC_TNS_ORDER_FREQ", 2),
+])
+def test_narrowed_tables_equal_their_sources(name, cum, freq, rows):
+    """The u16 rows of the image are the int32 cumulative frequencies without
+    their leading 0, and the frequencies the kernel derives from them (the
+    next entry less its own, 1024 past the last) are the int32 freq table."""
+    from lc3jax import tables as T
+
+    c = np.asarray(getattr(T, cum), np.int64)
+    f = np.asarray(getattr(T, freq), np.int64)
+    K = c.shape[1]
+    part = _image_part(name).reshape(rows, -1)
+    assert np.all(c[:, 0] == 0)
+    assert np.array_equal(part[:, : K - 1], c[:, 1:])
+    assert not part[:, K - 1 :].any()  # the order rows' pad
+    nxt = np.concatenate([part[:, : K - 1], np.full((rows, 1), 1024)], 1)
+    assert np.array_equal(nxt - np.concatenate([np.zeros((rows, 1), np.int64),
+                                                part[:, : K - 1]], 1), f)
+    assert np.array_equal(_image_part("lookup"), T.AC_SPEC_LOOKUP)
+
+
+def _camel(names):
+    return [re.sub(r"(?<!^)([A-Z])", r"_\1", n[1:]).lower() for n in names]
+
+
+def test_kernel_layout_constants_match_the_sources():
+    """The byte offsets (k* constants) and the [S] row orders (enum I32Row,
+    U8Row) of csrc/parse.cu equal parse_kernel.py's."""
+    src = (ROOT / "lc3jax_torch" / "csrc" / "parse.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    for name, _, _, off in parse_kernel.TABLE_LAYOUT:
+        key = "k" + "".join(w.capitalize() for w in name.split("_"))
+        assert const[key] == off, (name, const[key], off)
+    assert const["kTableBytes"] == parse_kernel.TABLE_BYTES
+    for enum, rows in (("I32Row", parse_kernel.I32_ROWS), ("U8Row", parse_kernel.U8_ROWS)):
+        body = re.search(rf"enum {enum} \{{([^}}]*)\}}", src).group(1)
+        names = [n.strip() for n in body.split(",") if n.strip()]
+        assert _camel(names[:-1]) == list(rows), (enum, names)
+
+
+@pytest.mark.parametrize("S, ne", [(1, 400), (3, 80), (2047, 400), (5, 60)])
+def test_output_views_are_fields_of_two_pools(S, ne):
+    """output_views hands out each ParsedFrames field as a C-contiguous view
+    of the int32 or the uint8 pool, at the field's shape and type (bool as
+    a view of the uint8 pool), no two overlapping and together covering
+    both pools."""
+    from lc3jax_torch.dsp.decoder import BOOL_FRAME_FIELDS
+
+    n32, n8 = parse_kernel.pool_sizes(S, ne)
+    pool32 = torch.empty(n32, dtype=torch.int32)
+    pool8 = torch.empty(n8, dtype=torch.uint8)
+    views = parse_kernel.output_views(pool32, pool8, S, ne)
+    wide = {"x_int": (S, ne), "residual_bits": (S, ne), "rc_order": (S, 2), "rc_i": (S, 16),
+            "sns_y": (S, 16)}
+    spans = {32: [], 8: []}
+    for f in dataclasses.fields(views):
+        v = getattr(views, f.name)
+        assert tuple(v.shape) == wide.get(f.name, (S,)), f.name
+        assert v.dtype == (torch.bool if f.name in BOOL_FRAME_FIELDS else torch.int32), f.name
+        assert v.is_contiguous(), f.name
+        pool = pool8 if v.dtype == torch.bool else pool32
+        assert v.untyped_storage().data_ptr() == pool.untyped_storage().data_ptr(), f.name
+        start = v.data_ptr() - pool.data_ptr()
+        spans[8 if v.dtype == torch.bool else 32].append((start, start + v.nbytes, f.name))
+    for bits, pool in ((32, pool32), (8, pool8)):
+        s = sorted(spans[bits])
+        assert s[0][0] == 0 and s[-1][1] == pool.nbytes, s
+        assert all(a[1] == b[0] for a, b in zip(s, s[1:])), s  # abutting: no overlap, no gap
+    # the int32 rows sit where the kernel writes them
+    assert views.x_int.data_ptr() == pool32.data_ptr()
+    assert views.residual_bits.data_ptr() == pool8.data_ptr()
+    for r, name in enumerate(parse_kernel.I32_ROWS):
+        assert getattr(views, name).data_ptr() == pool32.data_ptr() + 4 * (S * (ne + 34) + r * S)
+    for r, name in enumerate(parse_kernel.U8_ROWS):
+        assert getattr(views, name).data_ptr() == pool8.data_ptr() + S * ne + r * S

@@ -1,0 +1,338 @@
+#!/usr/bin/env python3
+"""Cycles per phase of the parse and pack kernels on a CUDA card: the
+previous ones (commit 308f410, one thread a stream) and the current ones
+(a warp a stream).
+
+    git archive 308f410 lc3jax_torch/csrc | tar -x -C checkout_copy/prev
+    python3 tools/kernel_phases.py --src checkout_copy/prev/lc3jax_torch/csrc
+
+Copies `parse.cu` and `pack.cu` from --src (the previous kernels) and from
+`lc3jax_torch/csrc` into a temporary directory, stamps `clock64()`
+at their phase boundaries and counts the symbols each stream codes, builds
+them with the port's nvcc flags and runs them on `chip_smoke.py`'s inputs
+at S = 2048: the bench content (its first stored frame for parse, its
+fields for pack) at 48 kHz / 10 ms / 150 B, full-scale noise at 150 B
+(every frame in LSB mode) and mixed content at 400 B. Each instrumented
+kernel's outputs are checked equal to the plain version. Then each
+version runs the bench content's four streams one at a time (S = 1, one
+warp alone on the card): the spectral phase's cycles over the stream's
+symbols is the chain's own latency per symbol.
+
+Prints, per kernel, version and batch, the median and maximum over streams
+of each phase's cycles, and `-Xptxas -v` of all four kernels; ends with one
+JSON line. Needs a card; the instrumented copies are never written into
+the repo.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import dataclasses
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+S = 2048
+
+# Edits of each source: (anchor that occurs once, text, where: "after" or
+# "before" the anchor, "after_line" its first line, or "replace" it). Each
+# kernel gets a `long long* stamps` parameter, keeps its n stamps in st_[]
+# and its count of spectral symbols in n_, and stores them as
+# stamps[s * (n + 1) + k], the count last.
+PREV_PARSE = (
+    [("uint8_t* __restrict__ bad_frame_o, int S,",
+      "uint8_t* __restrict__ bad_frame_o, long long* __restrict__ stamps, int S,", "replace"),
+     ("  if (s >= S) return;\n", "  long long st_[9];\n  int n_ = 0;\n  st_[0] = clock64();\n", "after"),
+     ("  bad = bad || f.tail_err;\n", "  st_[1] = clock64();\n", "after"),
+     ("  // ---------------- spectral tuples (arithmetic_codec.rs:211-305)\n", "  st_[2] = clock64();\n", "after"),
+     ("      sym = f.decode(tab + kSpecCum + 17 * pki, tab + kSpecFreq + 17 * pki, 17);\n", "      ++n_;\n", "after"),
+     ("  // ---------------- residual bits (arithmetic_codec.rs:160-208, 390-405)\n", "  st_[3] = clock64();\n", "after"),
+     ("  bad = bad || err || neg_budget;\n", "  st_[4] = clock64();\n", "after"),
+     ("  }\n\n  uint32_t seed = 0;\n", "  st_[5] = clock64();\n", "after"),
+     ("    for (int k = 0; k < ne; ++k) x[k] = 0;\n", "  st_[6] = clock64();\n", "after"),
+     ("  // ---------------- outputs: every field, every stream\n", "  st_[7] = clock64();\n", "after"),
+     ("  bad_frame_o[s] = bad;\n", "  __threadfence_block();\n  st_[8] = clock64();\n"
+      "  for (int k_ = 0; k_ < 9; ++k_) stamps[(size_t)s * 10 + k_] = st_[k_];\n"
+      "  stamps[(size_t)s * 10 + 9] = n_;\n", "after"),
+     ("uint8_t* bad_frame,\n    int S,", "uint8_t* bad_frame, long long* stamps,\n    int S,", "replace"),
+     ("pitch_index, bad_frame, S, nbytes,", "pitch_index, bad_frame, stamps, S, nbytes,", "replace")],
+    ("side info", "TNS symbols", "spectral tuples", "residual bits", "LSB refinement",
+     "seed, zeroing", "MPVQ", "output stores"))
+CUR_PARSE = (
+    [("int fs_ind, int is_7p5) {\n  extern __shared__", "int fs_ind, int is_7p5, long long* __restrict__ stamps) {\n"
+      "  extern __shared__", "replace"),
+     ("  const int u = tid >> 5;  // this warp's stream in the block\n",
+      "  long long st_[8] = {0};\n  int n_ = 0;\n  st_[0] = clock64();\n", "after"),
+     ("  if (u < nvalid) {\n    int* x = xs + u * ne;", "  st_[1] = clock64();\n", "before"),
+     ("      // ---------------- spectral tuples (arithmetic_codec.rs:211-305)\n", "      st_[2] = clock64();\n", "before"),
+     ("          sym = f.decode<17>(spec + 16 * tab[kLookup + li]);\n", "          ++n_;\n", "after"),
+     ("      // ---------------- the residual budget", "      st_[3] = clock64();\n", "before"),
+     ("    // lane 0 alone from here to the rows", "    st_[4] = clock64();\n", "before"),
+     ("    // ---------------- the noise-filling seed", "    st_[5] = clock64();\n", "before"),
+     ("  __syncthreads();\n\n  // ---------------- the block's rows out", "  st_[6] = clock64();\n", "before"),
+     ("    if (k < nvalid) rows8[(size_t)r * S + s0 + k] = s_rows8[r][k];\n  }\n",
+      "  __syncthreads();\n  st_[7] = clock64();\n  if (lane == 0 && u < nvalid) {\n"
+      "    for (int k_ = 0; k_ < 8; ++k_) stamps[(size_t)(s0 + u) * 9 + k_] = st_[k_];\n"
+      "    stamps[(size_t)(s0 + u) * 9 + 8] = n_;\n  }\n", "after"),
+     ("                          void* stream) {", "                          void* stream, long long* stamps) {", "replace"),
+     ("payloads, tables, pool32, pool8, S, nbytes, ne, fs_ind, is_7p5);",
+      "payloads, tables, pool32, pool8, S, nbytes, ne, fs_ind, is_7p5, stamps);", "replace")],
+    ("stage", "side info, TNS symbols", "spectral tuples", "budget, residual bits (warp)",
+     "LSB refinement, MPVQ, fields", "seed (warp)", "block copy-out"))
+PACK_COMMON = [
+    ("  w.uint_backward(field(kNoiseFactor), 3);\n", "  st_[2] = clock64();\n", "after"),
+    ("      st.encode(w, v & 1023, uint32_t(v) >> 10);\n      if (!(lsb_mode", "      ++n_;\n", "after_line"),
+    ("    st.encode(w, v & 1023, uint32_t(v) >> 10);\n    const bool halve", "    ++n_;\n", "after_line"),
+    ("  st.finish(w);\n  w.final_flush();\n", "  st_[5] = clock64();\n", "before"),
+]
+PREV_PACK = (
+    PACK_COMMON + [
+        ("uint8_t* __restrict__ out, int S,",
+         "uint8_t* __restrict__ out, long long* __restrict__ stamps, int S,", "replace"),
+        ("  if (s >= S) return;\n", "  long long st_[7];\n  int n_ = 0;\n  st_[0] = clock64();\n", "after"),
+        ("  for (int i = 0; i < nbytes; ++i) w.buf[i] = 0;\n", "  st_[1] = clock64();\n", "after"),
+        ("  // ---- spectral tuples (lc3_bitstream.cc:1006-1047)", "  st_[3] = clock64();\n", "before"),
+        ("  // ---- residual or LSB bits in the gap", "  st_[4] = clock64();\n", "before"),
+        ("  st.finish(w);\n  w.final_flush();\n", "  __threadfence_block();\n  st_[6] = clock64();\n"
+         "  for (int k_ = 0; k_ < 7; ++k_) stamps[(size_t)s * 8 + k_] = st_[k_];\n"
+         "  stamps[(size_t)s * 8 + 7] = n_;\n", "after"),
+        ("uint8_t* out, int S, int ne,", "uint8_t* out, long long* stamps, int S, int ne,", "replace"),
+        ("xq, res, side, pk, tab, out, S,", "xq, res, side, pk, tab, out, stamps, S,", "replace")],
+    ("row zeroing", "side info", "TNS symbols", "spectral tuples", "residual/LSB fill", "finish"))
+CUR_PACK = (
+    PACK_COMMON + [
+        ("int nbits_bw, int lpcw) {\n  const int NT = ne / 2;\n  auto field",
+         "int nbits_bw, int lpcw, long long* st_, int& n_) {\n  const int NT = ne / 2;\n  auto field", "replace"),
+        ("  // ---- spectral tuples (lc3_bitstream.cc:1006-1047)", "  st_[3] = clock64();\n", "before"),
+        ("  // ---- residual or LSB bits in the gap", "  st_[4] = clock64();\n", "before"),
+        ("  st.finish(w);\n  w.final_flush();\n", "  st_[6] = clock64();\n", "after"),
+        ("int S, int ne, int nbytes, int nbits_bw, int lpcw) {\n  extern",
+         "int S, int ne, int nbytes, int nbits_bw, int lpcw, long long* __restrict__ stamps) {\n  extern",
+         "replace"),
+        ("  const int tid = threadIdx.x;\n\n", "  long long st_[8] = {0};\n  int n_ = 0;\n  st_[0] = clock64();\n",
+         "after"),
+        ("  // lane 0 of warp u codes stream s0 + u\n", "  st_[1] = clock64();\n", "before"),
+        ("               ne, nbytes, nbits_bw, lpcw);", "               ne, nbytes, nbits_bw, lpcw, st_, n_);", "replace"),
+        ("  block_copy(out + (size_t)s0 * nbytes, rows, nvalid * nbytes);\n",
+         "  __syncthreads();\n  st_[7] = clock64();\n  if ((tid & 31) == 0 && u < nvalid) {\n"
+         "    for (int k_ = 0; k_ < 8; ++k_) stamps[(size_t)(s0 + u) * 9 + k_] = st_[k_];\n"
+         "    stamps[(size_t)(s0 + u) * 9 + 8] = n_;\n  }\n", "after"),
+        ("int nbits_bw, int lpcw, void* stream) {", "int nbits_bw, int lpcw, void* stream, long long* stamps) {",
+         "replace"),
+        ("xq, res, side, pk, tab, out, S, ne, nbytes, nbits_bw, lpcw);",
+         "xq, res, side, pk, tab, out, S, ne, nbytes, nbits_bw, lpcw, stamps);", "replace")],
+    ("stage", "side info", "TNS symbols", "spectral tuples", "residual/LSB fill", "finish",
+     "block copy-out"))
+
+
+def instrument(text: str, edits, entry: str) -> str:
+    """Apply the edits (each anchor must occur once) and rename the C entry
+    `entry` to `entry`_phase."""
+    for anchor, add, where in edits:
+        if text.count(anchor) != 1:
+            raise ValueError(f"anchor not found once: {anchor!r}")
+        if where == "after":
+            new = anchor + add
+        elif where == "before":
+            new = add + anchor
+        elif where == "after_line":  # after the anchor's first line
+            first, rest = anchor.split("\n", 1)
+            new = first + "\n" + add + rest
+        else:  # replace
+            new = add
+        text = text.replace(anchor, new)
+    old = f'extern "C" int {entry}('
+    if text.count(old) != 1:
+        raise ValueError(f"entry {entry} not found once")
+    return text.replace(old, f'extern "C" int {entry}_phase(')
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", type=Path, required=True, help="directory with the previous parse.cu, pack.cu")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_phases: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke as cs
+    from lc3jax_torch import _build
+    from lc3jax_torch import tables as T
+    from lc3jax_torch.coding import device as cdev
+    from lc3jax_torch.coding import pack_kernel, parse_kernel
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.dsp.decoder import BOOL_FRAME_FIELDS, ParsedFrames
+    from lc3jax_torch.dsp.encoder import encode_step, encoder_init
+
+    card = cs.card_line()
+    print(card, flush=True)
+    nvcc = _build.find_nvcc()
+    dirs = {"previous": args.src, "current": _build.CSRC}
+    specs = {("previous", "parse"): PREV_PARSE, ("current", "parse"): CUR_PARSE,
+             ("previous", "pack"): PREV_PACK, ("current", "pack"): CUR_PACK}
+    tmp = Path(tempfile.mkdtemp())
+    ptxas, libs = {}, {}
+    for version, d in dirs.items():
+        srcs = []
+        for kern in ("parse", "pack"):
+            r = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", "/dev/null",
+                                str(d / f"{kern}.cu")], capture_output=True, text=True)
+            ptxas[f"{version} {kern}"] = [ln.split(":", 1)[-1].strip() for ln in r.stderr.splitlines()
+                                          if "registers" in ln or "stack frame" in ln]
+            print(f"ptxas {version} {kern}: {ptxas[f'{version} {kern}']}", flush=True)
+            f = tmp / f"{version}_{kern}.cu"
+            f.write_text(instrument((d / f"{kern}.cu").read_text(), specs[version, kern][0],
+                                    f"lc3t_{kern}"))
+            srcs.append(str(f))
+        so = tmp / f"lib{version}.so"
+        r = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I", str(d), "-shared", "-o", str(so), *srcs],
+                           capture_output=True, text=True)
+        if r.returncode:
+            print(r.stderr, file=sys.stderr)
+            return 1
+        L = ctypes.CDLL(str(so))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        L.lc3t_parse_phase.argtypes = ([P] * 23 + [I] * 5 + [P] if version == "previous"
+                                       else [P] * 4 + [I] * 5 + [P, P])
+        L.lc3t_pack_phase.argtypes = ([P] * 7 + [I] * 5 + [P] if version == "previous"
+                                      else [P] * 6 + [I] * 5 + [P, P])
+        libs[version] = L
+
+    dev = torch.device("cuda")
+    cfg = Lc3Config.new(48000, FrameDuration.MS10)
+    stream = torch.cuda.current_stream().cuda_stream
+    # the previous kernel's int32 table buffer (its parse_kernel.table_buffer)
+    tab32 = torch.as_tensor(np.concatenate([np.asarray(t, np.int64).ravel() for t in (
+        T.AC_SPEC_CUMFREQ, T.AC_SPEC_FREQ, T.AC_SPEC_LOOKUP, T.AC_TNS_ORDER_CUMFREQ,
+        T.AC_TNS_ORDER_FREQ, T.AC_TNS_COEF_CUMFREQ, T.AC_TNS_COEF_FREQ, T.MPVQ_OFFSETS)])
+        .astype(np.int32), device=dev)
+
+    def summary(st: np.ndarray, names) -> dict:
+        n = len(names) + 1
+        d = np.diff(st[:, :n].astype(np.int64), axis=1)
+        out = {k: [float(np.median(d[:, i])), int(d[:, i].max())] for i, k in enumerate(names)}
+        tot = st[:, n - 1] - st[:, 0]
+        out["total"] = [float(np.median(tot)), int(tot.max())]
+        out["symbols"] = [float(np.median(st[:, n])), int(st[:, n].max())]
+        return out
+
+    def run_parse(version: str, nb: int, pay) -> np.ndarray:
+        ns, ne = pay.shape[0], cfg.ne
+        names = specs[version, "parse"][1]
+        stamps = torch.zeros(ns, len(names) + 2, dtype=torch.int64, device=dev)
+        L = libs[version]
+        if version == "previous":
+            shapes = {"x_int": (ns, ne), "rc_order": (ns, 2), "rc_i": (ns, 16),
+                      "residual_bits": (ns, ne), "sns_y": (ns, 16)}
+            out = {f.name: torch.empty(shapes.get(f.name, (ns,)), device=dev,
+                                       dtype=torch.bool if f.name in BOOL_FRAME_FIELDS else torch.int32)
+                   for f in dataclasses.fields(ParsedFrames)}
+            save = torch.empty((ne // 2, ns), dtype=torch.int32, device=dev)
+            call = lambda: L.lc3t_parse_phase(  # noqa: E731
+                pay.data_ptr(), tab32.data_ptr(), save.data_ptr(),
+                *[out[f.name].data_ptr() for f in dataclasses.fields(ParsedFrames)],
+                stamps.data_ptr(), ns, nb, ne, cfg.fs_ind, 0, stream)
+            got = lambda: ParsedFrames(**out)  # noqa: E731
+        else:
+            n32, n8 = parse_kernel.pool_sizes(ns, ne)
+            p32 = torch.empty(n32, dtype=torch.int32, device=dev)
+            p8 = torch.empty(n8, dtype=torch.uint8, device=dev)
+            call = lambda: L.lc3t_parse_phase(  # noqa: E731
+                pay.data_ptr(), parse_kernel._device_tables(dev).data_ptr(), p32.data_ptr(),
+                p8.data_ptr(), ns, nb, ne, cfg.fs_ind, 0, stream, stamps.data_ptr())
+            got = lambda: parse_kernel.output_views(p32, p8, ns, ne)  # noqa: E731
+        for _ in range(3):
+            if call():
+                raise RuntimeError(f"{version} parse_phase: CUDA error")
+        torch.cuda.synchronize()
+        want, have = cdev.device_parse_plain(cfg, nb, pay), got()
+        for f in dataclasses.fields(ParsedFrames):
+            if not torch.equal(getattr(have, f.name), getattr(want, f.name)):
+                raise AssertionError(f"instrumented {version} parse != plain on {f.name}")
+        return stamps.cpu().numpy()
+
+    def run_pack(version: str, nb: int, fields: dict) -> np.ndarray:
+        ns = fields["x_q"].shape[0]
+        xq, res = fields["x_q"].contiguous(), fields["residual_bits"].contiguous()
+        pk = fields["quant_pack_tables"].contiguous()
+        side = pack_kernel.side_rows(fields)
+        out = torch.empty(ns, nb, dtype=torch.uint8, device=dev)
+        names = specs[version, "pack"][1]
+        stamps = torch.zeros(ns, len(names) + 2, dtype=torch.int64, device=dev)
+        ptrs = [xq.data_ptr(), res.data_ptr(), side.data_ptr(), pk.data_ptr(),
+                pack_kernel._tables(dev).data_ptr(), out.data_ptr()]
+        ints = [ns, cfg.ne, nb, pack_kernel.NBITS_BW[cfg.fs_ind], pack_kernel.lpc_weighting(cfg, nb)]
+        for _ in range(3):
+            err = (libs[version].lc3t_pack_phase(*ptrs, stamps.data_ptr(), *ints, stream)
+                   if version == "previous" else
+                   libs[version].lc3t_pack_phase(*ptrs, *ints, stream, stamps.data_ptr()))
+            if err:
+                raise RuntimeError(f"{version} pack_phase: CUDA error {err}")
+        torch.cuda.synchronize()
+        if not torch.equal(out, pack_kernel.device_pack_plain(cfg, nb, fields)):
+            raise AssertionError(f"instrumented {version} pack != plain")
+        return stamps.cpu().numpy()
+
+    def fields_of(nb: int, pcm: np.ndarray) -> dict:
+        st = encoder_init(cfg, pcm.shape[1], dev)
+        for f in range(pcm.shape[0]):
+            st, fields = encode_step(cfg, nb, st, torch.as_tensor(pcm[f], device=dev), emit_pack=True)
+        return fields
+
+    bench = np.load(ROOT / "tests" / "goldens" / "torch_bench_content.npz")
+    tile = np.arange(S) % 4
+    fields = {"bench 150 B": (150, fields_of(150, bench["pcm_in"][tile, :2].transpose(1, 0, 2))),
+              "noise 150 B": (150, fields_of(150, cs.noise_pcm(cfg, S, 2, seed=4))),
+              "mixed 400 B": (400, fields_of(400, cs.mixed_pcm(cfg, S, 2, seed=5)))}
+    # parse reads the bench content's stored frames, as chip_smoke.py phase 9 does
+    frames = {"bench 150 B": (150, torch.as_tensor(bench["frames"][tile, 0], device=dev))}
+    for label in ("noise 150 B", "mixed 400 B"):
+        nb, f = fields[label]
+        frames[label] = (nb, pack_kernel.device_pack(cfg, nb, f))
+    result = {"card": card, "ptxas": ptxas, "phases": {}, "alone": {}}
+    spectral = {"parse": "spectral tuples", "pack": "spectral tuples"}
+    for version in dirs:
+        for label, (nb, pay) in frames.items():
+            result["phases"][f"{version} parse {label}"] = summary(
+                run_parse(version, nb, pay), specs[version, "parse"][1])
+        for label, (nb, f) in fields.items():
+            result["phases"][f"{version} pack {label}"] = summary(
+                run_pack(version, nb, f), specs[version, "pack"][1])
+        # one stream alone: the chain's own cycles per symbol, the bench's four streams
+        for kern in ("parse", "pack"):
+            names = specs[version, kern][1]
+            i = names.index(spectral[kern])
+            per = []
+            for s in range(4):
+                if kern == "parse":
+                    st = run_parse(version, 150, frames["bench 150 B"][1][s : s + 1])
+                else:
+                    one = {k: (v[:, s : s + 1] if k == "quant_pack_tables" else v[s : s + 1])
+                           if torch.is_tensor(v) else v for k, v in fields["bench 150 B"][1].items()}
+                    st = run_pack(version, 150, one)
+                per.append(float(st[0, i + 1] - st[0, i]) / max(int(st[0, len(names) + 1]), 1))
+            result["alone"][f"{version} {kern}"] = per
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True).stdout.strip()
+    result["sm_clock"] = clocks
+    for key, phases in result["phases"].items():
+        print(f"{key}: " + "; ".join(f"{k} {v[0]:.0f} ({v[1]})" for k, v in phases.items()))
+    for key, per in result["alone"].items():
+        print(f"{key}, one stream alone, cycles a spectral symbol: "
+              + ", ".join(f"{c:.0f}" for c in per))
+    print(f"SM clock after the runs: {clocks}")
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
