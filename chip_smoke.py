@@ -13,14 +13,22 @@ stated:
    at once, then the host packer (native/lc3_bitstream.cc);
 3. kernels: each decode kernel against its plain PyTorch version on the
    card: parse on encoded frames mixed with random garbage (all 19 fields
-   equal), TNS synthesis on random lattices (equal), LTPF (equal) on
+   equal); TNS synthesis (equal) on random lattices, on the decode step's
+   arguments for the bench content, and on the shapes of tns_cases: random
+   lattices at 48 kHz / 10 ms with S = 2047 (also with x not 16-byte
+   aligned) and S = 1, and at 48 kHz / 7.5 ms, 16 kHz / 7.5 ms and
+   8 kHz / 10 ms (S = 2048), bandwidths up to
+   the config's own and 4 (bounds past ne), orders with ord1 < ord0,
+   ord1 > ord0, ord0 = 0 and one filter with ord1 > 0; LTPF (equal) on
    random-state stress inputs at 48 kHz / 10 ms, 48 kHz / 7.5 ms and
    8 kHz / 10 ms (S = 2048), at 48 kHz / 10 ms with S = 2047 and S = 1,
    and on the arguments the decode step gives it for the bench content;
 4. enc-kernels: the four encoder kernels against their plain versions, on
    random inputs and on the inputs the encoder gives them for the bench
    content (SNS PVQ, TNS autocorrelation, TNS analysis, bit model: equal;
-   the autocorrelation also at S = 2047);
+   the autocorrelation also at S = 2047, the TNS analysis also on the
+   shapes of tns_cases and with filter bounds beyond LC3's tables, which
+   overlap);
 4b. pack-kernels: the bit model with emit_pack against its plain version
    (and its table part against the one without), and the pack kernel
    against its plain version and the C++ host packer, on the fields of four
@@ -49,6 +57,10 @@ stated:
 8. encode-corpus: the six corpus geometries and stream50 through the
    encoder at S = 1, every frame equal to the oracle's bytes;
 8b. encode-fused-corpus: the same through BatchEncoder(device_pack=True);
+8c. config-parity: the ten config-parity streams, the two 32 kHz attack
+   streams and the per-frame rate plan of tests/goldens/torch_config_parity.npz
+   (tools/gen_torch_config_parity.py) at S = 1: BatchDecoder within 1 LSB of
+   the oracle's PCM, both BatchEncoder modes byte-exact to its frames;
 9. times: CUDA events after warm-up, median of 20: the fused decode step,
    each kernel, its plain version and the library call where one exists;
    beside each kernel's (and the library call's) per-call event time, its
@@ -56,7 +68,10 @@ stated:
    under torch.profiler, without the wrapper's host work. LTPF is timed on
    the stress inputs and on the decode step's own arguments; the
    autocorrelation and torch.bmm alternate call by call, median of 200
-   each.
+   each. The TNS synthesis chain floor: the fewest cycles a line one of the
+   bench's streams takes alone (S = 1, an instrumented copy of the kernel:
+   tools/kernel_phases.py), times the most active lines a stream of the
+   decode step runs, at the card's highest SM clock.
    The encode DSP step (CUDA events, host wall, thread CPU time), the
    whole encode with the host pack (host wall, thread CPU time) and the
    fused encode step (CUDA events, host wall) alternate over 20 reps, each
@@ -66,7 +81,8 @@ stated:
 Then the card's line, one JSON line with the kernels (each with its event
 and device times and its bound: the larger of its bytes over 3.35 TB/s
 and its f32 operations over 67 TFLOP/s, the H100 SXM's published peaks,
-counted from this run's inputs), and last the device line. Uses no JAX
+counted from this run's inputs; the TNS synthesis also with its chain
+floor), and last the device line. Uses no JAX
 and nothing of the lc3jax package: the references are the stored goldens
 of tests/goldens (tools/gen_torch_encode_goldens.py made the bench
 content's).
@@ -307,6 +323,83 @@ def ltpf_stress(p, S: int, seed: int, device):
     return st, x, active, pitch
 
 
+def tns_random(cfg, S: int, seed: int) -> tuple:
+    """Random TNS lattice inputs at cfg (numpy): x [S, ne] f32 at scales
+    1-1000; bandwidths up to cfg's own, and 4 on every fourth stream (at a
+    low rate its bounds run past ne); orders 0-8 with, among them, streams
+    where ord1 < ord0, ord1 > ord0, ord0 = 0, and num_filters = 1 with
+    ord1 > 0; reflection indices 0-16. Returns x, bw, rc_order,
+    num_filters, rc_i."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((S, cfg.ne)) * 10 ** rng.uniform(0, 3, (S, 1))).astype(np.float32)
+    k = np.arange(S) % 8
+    bw = np.where(k % 4 == 3, 4, rng.integers(0, cfg.fs_ind + 1, S)).astype(np.int32)
+    ro = rng.integers(0, 9, (S, 2))
+    nf = rng.integers(1, 3, S)
+    ro[k == 0], ro[k == 1], ro[k == 2, 0], nf[k < 3] = [7, 3], [2, 8], 0, 2
+    ro[k == 4, 1], nf[k == 4] = 6, 1
+    return (x, bw, ro.astype(np.int32), nf.astype(np.int32),
+            rng.integers(0, 17, (S, 16)).astype(np.int32))
+
+
+def tns_cases(cfg, dev) -> dict:
+    """{label: (synthesis args, analysis args)} on the card: random inputs
+    at S = 2047 and S = 1 at cfg (48 kHz / 10 ms), and at S = 2048 at
+    48 kHz / 7.5 ms, 16 kHz / 7.5 ms and 8 kHz / 10 ms (tns_random); and
+    the S = 2047 inputs with x not 16-byte aligned."""
+    import torch
+
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.convert import decoder_tables, encoder_tables
+
+    out = {}
+    for label, c, S, seed in (("48k/10ms S=2047", cfg, S_MAIN - 1, 20), ("48k/10ms S=1", cfg, 1, 21),
+                              ("48k/7.5ms", Lc3Config.new(48000, FrameDuration.MS7P5), S_MAIN, 22),
+                              ("16k/7.5ms", Lc3Config.new(16000, FrameDuration.MS7P5), S_MAIN, 23),
+                              ("8k/10ms", Lc3Config.new(8000, FrameDuration.MS10), S_MAIN, 24)):
+        x, bw, ro, nf, ri = (torch.as_tensor(a, device=dev) for a in tns_random(c, S, seed))
+        dt, et = decoder_tables(c, 1200, dev), encoder_tables(c, 1200, dev)
+        out[label] = ((dt, x, bw, ro, ri),
+                      (x, et.tns_bounds[bw.long()], ro, nf, et.tns_sin[ri.long()]))
+    # the same rows 4 bytes past a 16-byte boundary: the kernels' 4-byte staging
+    syn, ana = out["48k/10ms S=2047"]
+    x = syn[1]
+    shifted = x.new_empty(x.numel() + 1)[1:].view(x.shape).copy_(x)
+    out["48k/10ms S=2047 x misaligned"] = ((syn[0], shifted, *syn[2:]), (shifted, *ana[1:]))
+    return out
+
+
+def overlapping_bounds(S: int, ne: int, seed: int) -> np.ndarray:
+    """int32 [S, 2, 2] TNS filter bounds beyond LC3's tables, which give
+    adjacent filters: filter 1 inside filter 0, filter 0 inside filter 1,
+    and random ranges (empty, past ne, in either order), by stream mod 3."""
+    rng = np.random.default_rng(seed)
+    a = np.sort(rng.integers(0, ne + 20, (S, 4)), axis=1)
+    out = rng.integers(0, ne + 20, (S, 2, 2))
+    k = np.arange(S) % 3
+    out[k == 0] = np.stack([a[:, [0, 3]], a[:, [1, 2]]], 1)[k == 0]
+    out[k == 1] = np.stack([a[:, [1, 2]], a[:, [0, 3]]], 1)[k == 1]
+    return out.astype(np.int32)
+
+
+def active_lines(tab, bandwidth, rc_order, ne: int):
+    """Each stream's active TNS lines (inside a filter of order > 0) [S]."""
+    import torch
+
+    b = tab.tns_bounds[bandwidth.long()].long()
+    n = torch.arange(ne, device=b.device)[None, :]
+    on = [(rc_order[:, f:f + 1] > 0) & (n >= b[:, 2 * f:2 * f + 1]) & (n < b[:, 2 * f + 1:2 * f + 2])
+          for f in range(2)]
+    return (on[0] | on[1]).sum(1)
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, MHz (nvidia-smi)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def mixed_pcm(cfg, S: int, T: int, seed: int) -> np.ndarray:
     """int16 [T, S, nf] in the pattern of tests/test_pallas_pack.py: silence,
     full-scale noise (LSB mode), tones and quiet noise, by stream mod 4."""
@@ -419,6 +512,9 @@ def main() -> int:
     from lc3jax_torch.dsp.ltpf import ltpf_pass_args
     from lc3jax_torch.serving import BatchDecoder, BatchEncoder
 
+    sys.path.insert(0, str(ROOT / "tools"))
+    import kernel_phases
+
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     gold = ROOT / "tests" / "goldens"
@@ -468,6 +564,15 @@ def main() -> int:
     errs["tns_synthesis"] = float((yk - yp).abs().max())
     if not torch.equal(yk, yp):
         raise AssertionError(f"tns kernel != plain, max abs {errs['tns_synthesis']}")
+    # the decode step's own arguments (the bench content's first frame), and
+    # the shapes the chunking and the bounds can get wrong
+    pay = torch.as_tensor(bench["frames"][tile, 0], device=dev)
+    fr = cdev.device_parse(cfg, NBYTES, pay)
+    real_tns = (tab, D.pre_tns(tab, fr), fr.bandwidth, fr.rc_order, fr.rc_i)
+    tns_more = tns_cases(cfg, dev)
+    for label, args in [("decode step S=2048", real_tns)] + [(k, v[0]) for k, v in tns_more.items()]:
+        equal_outputs(f"tns_synthesis ({label})", tns_kernel.tns_synthesis(*args),
+                      tns_kernel.tns_synthesis_plain(*args))
 
     # LTPF: the stress inputs of earlier runs (48 kHz / 10 ms at 150 B, where
     # the new coefficients are zero), the three shapes of the paths at rates
@@ -492,7 +597,8 @@ def main() -> int:
                       ltpf_kernel.ltpf_both_passes_plain(*a))
     errs["ltpf"] = 0.0
     log("kernels", f"parse: 19 fields equal ({n_bad}/{S_MAIN} bad frames); "
-                   f"tns: equal (max abs {errs['tns_synthesis']}); "
+                   f"tns: equal on random 48k/10ms S=2048 inputs, the decode step's arguments, "
+                   f"{', '.join(tns_more)}; "
                    f"ltpf: equal on {', '.join(lt_cases)}")
 
     # ---- 4. encoder kernels against their plain versions
@@ -527,15 +633,20 @@ def main() -> int:
                                 bitmodel_kernel.bitmodel_table_part_plain),
     }
     lines = []
-    ragged = {"tns_autocorr": (rnd[: S_MAIN - 1], etab.tns_sub[bw_r[: S_MAIN - 1]])}
+    more = {"tns_autocorr": {f"random S={S_MAIN - 1}": (rnd[: S_MAIN - 1],
+                                                        etab.tns_sub[bw_r[: S_MAIN - 1]])},
+            "tns_analysis": {k: v[1] for k, v in tns_more.items()}}
+    x_o, _, ro_o, nf_o, ri_o = (torch.as_tensor(a, device=dev) for a in tns_random(cfg, S_MAIN, 25))
+    more["tns_analysis"]["48k/10ms overlapping filters"] = (
+        x_o, torch.as_tensor(overlapping_bounds(S_MAIN, cfg.ne, 26), device=dev), ro_o, nf_o,
+        etab.tns_sin[ri_o.long()])
     for name, (kern, plain) in enc_fns.items():
         cases = [("random", random_args[name]), ("bench", real[name])]
-        if name in ragged:
-            cases.append((f"random S={S_MAIN - 1}", ragged[name]))
+        cases += list(more.get(name, {}).items())
         for label, args in cases:
             equal_outputs(f"{name} ({label})", kern(*args), plain(*args))
         errs[name] = 0.0
-        lines.append(f"{name}: equal" + (f" (also at S={S_MAIN - 1})" if name in ragged else ""))
+        lines.append(f"{name}: equal" + (f" (also on {', '.join(more[name])})" if name in more else ""))
     torch.cuda.synchronize()
     log("enc-kernels", "; ".join(lines) + " (random and bench inputs, S=2048)")
 
@@ -715,15 +826,38 @@ def main() -> int:
         lines.append(f"{name}: {len(pl)}/{len(pl)} equal")
     log("encode-fused-corpus", "; ".join(lines))
 
+    # ---- 8c. the config-parity streams, the attack streams and the rate plan, S = 1
+    cp = np.load(gold / "torch_config_parity.npz")
+    lines = []
+    for key in sorted(k[: -len("_pcm_in")] for k in cp.files if k.endswith("_pcm_in")):
+        pcm_c, pl, want_pcm = cp[key + "_pcm_in"], cp[key + "_payloads"], cp[key + "_pcm_out"]
+        if key == "rate_plan":
+            c, plan = cfg, [int(n) for n in cp["rate_plan_nbytes"]]
+        else:
+            fs, ms, nb = key.split("_")[-3:]
+            c, plan = geo([fs, ms]), [int(nb)] * len(pl)
+        d = BatchDecoder(c, 1, plan[0], device="cuda")
+        out = np.stack([d.decode(pl[f : f + 1, :nb])[0] for f, nb in enumerate(plan)])
+        max_lsb, snr = envelope(out, want_pcm)
+        if max_lsb > 1:
+            raise AssertionError(f"config-parity {key}: decode max {max_lsb} LSB (need <= 1)")
+        for fused_mode in (False, True):
+            e = BatchEncoder(c, 1, plan[0], device="cuda", device_pack=fused_mode)
+            bad = [f for f, nb in enumerate(plan)
+                   if not np.array_equal(e.encode(pcm_c[f : f + 1], nbytes=nb)[0], pl[f, :nb])]
+            if bad:
+                raise AssertionError(f"config-parity {key} ({'fused' if fused_mode else 'host pack'}"
+                                     f"): frames {bad[:8]} of {len(plan)} differ from the oracle's")
+        lines.append(f"{key}: decode max {max_lsb} LSB ({snr:.1f} dB), {len(plan)}/{len(plan)} "
+                     f"frames equal in both encode modes")
+    log("config-parity", "; ".join(lines))
+
     # ---- 9. times (CUDA events, median of REPS after warm-up)
-    pay = torch.as_tensor(frames[tile, 0], device=dev)
     dec_ms = cuda_ms(lambda: dec.decode_tensor(pay))
     pcm0 = torch.as_tensor(pcm_in[tile, 0], device=dev)
     et = encode_times(enc, fenc, pcm_in[tile, 0], pcm0)
     enc_ms, enc_wall = float(np.median(et["dsp_event"])), float(np.median(et["enc_wall"]))
     fused_ms = float(np.median(et["fused_event"]))
-    fr = cdev.device_parse(cfg, NBYTES, pay)
-    real_tns = (tab, D.pre_tns(tab, fr), fr.bandwidth, fr.rc_order, fr.rc_i)
     kargs = {
         "parse": ((cfg, NBYTES, pay), parse_kernel.parse_frames_cuda, cdev.device_parse_plain),
         "tns_synthesis": (real_tns, tns_kernel.tns_synthesis, tns_kernel.tns_synthesis_plain),
@@ -759,6 +893,15 @@ def main() -> int:
     work = ((b4[:, 1] - b4[:, 0]) * 4 * ro_s[:, 0] + (b4[:, 3] - b4[:, 2]) * 4 * ro_s[:, 1])
     bounds["tns_synthesis"] = bound(2 * nbytes_of(xs) + nbytes_of(bw_s, ro_s, ri_s),
                                     float(work.sum()))
+    # its chain floor: the fewest cycles a line that one stream alone takes
+    # (those of the bench's four with a filter on, in an instrumented copy:
+    # tools/kernel_phases.py),
+    # times the most active lines a stream of the decode step runs, at the
+    # card's highest SM clock
+    chain_cyc = kernel_phases.synthesis_alone_cycles(real_tns)
+    chain_lines = int(active_lines(tab, bw_s, ro_s, cfg.ne).max())
+    clock = sm_clock_mhz()
+    chain_floor = min(chain_cyc) * chain_lines / (clock * 1e3)
     # the LTPF reads only xcat[:, H - l_num:] and hist_y[:, H - rb:] (the
     # window tests/test_torch_ltpf.py pins), its other arguments whole, and
     # writes yA and yB
@@ -855,6 +998,11 @@ def main() -> int:
                      + (f", library {library[k]:.4f} ms (device {library_dev[k]:.4f})"
                         if library[k] is not None else "")
                      for k, (a, b) in times.items()))
+    log("tns-chain", f"{card}: tns_synthesis one stream alone "
+                     f"{', '.join(f'{c:.1f}' for c in chain_cyc)} cycles a line (those of the "
+                     f"bench's four streams with a filter on); x {chain_lines} active lines at "
+                     f"{clock:.0f} MHz = chain floor "
+                     f"{chain_floor:.5f} ms against {dev_ms['tns_synthesis']:.4f} ms on the device")
     log("host-pack", f"{card}: the C++ host packer (native/lc3_bitstream.cc, {host_pack.N_THREADS} "
                      f"threads) on the pack kernel's bench fields, S={S_MAIN}, 150 B: "
                      f"{spread(host_ms)} ms wall, median [min-max] of {REPS}")
@@ -887,6 +1035,9 @@ def main() -> int:
         decode_step_args_ms=lt_main_ms[0], decode_step_args_device_ms=lt_main_ms[1],
         decode_step_args_plain_ms=lt_main_ms[2])
     kernels[list(meta).index("tns_autocorr")].update(library_device_ms=library_dev["tns_autocorr"])
+    kernels[list(meta).index("tns_synthesis")].update(
+        chain_floor_ms=chain_floor, chain_cycles_a_line=min(chain_cyc), chain_lines=chain_lines,
+        sm_clock_mhz=clock)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -44,12 +44,12 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 # C signatures: name -> argtypes (every entry returns int, a cudaError_t)
 SIGNATURES = {
-    "lc3t_tns_synthesis": [_PTR] * 5 + [_INT] * 2 + [_PTR],
+    "lc3t_tns_synthesis": [_PTR] * 7 + [_INT] * 2 + [_PTR],
     "lc3t_ltpf_both_passes": [_PTR] * 13 + [_INT] * 7 + [_PTR],
     "lc3t_parse": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     "lc3t_sns_pvq": [_PTR] * 8 + [_INT] + [_PTR],
     "lc3t_tns_autocorr": [_PTR] * 3 + [_INT] * 2 + [_PTR],
-    "lc3t_tns_analysis": [_PTR] * 5 + [_INT] * 2 + [_PTR],
+    "lc3t_tns_analysis": [_PTR] * 6 + [_INT] * 2 + [_PTR],
     "lc3t_bitmodel": [_PTR] * 10 + [_INT] * 4 + [_PTR],
     "lc3t_pack": [_PTR] * 6 + [_INT] * 5 + [_PTR],
 }

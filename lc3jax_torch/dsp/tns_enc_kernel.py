@@ -136,7 +136,9 @@ def tns_analysis_plain(x, bounds, rc_order, num_filters, rc_q):
 
 
 def tns_analysis(x, bounds, rc_order, num_filters, rc_q):
-    """Forward TNS lattice for any S >= 1 (see tns_analysis_plain)."""
+    """Forward TNS lattice for any S >= 1 (see tns_analysis_plain); on the
+    card the kernel reads every input as it is and gates the second filter
+    by num_filters itself, and the result is a contiguous [S, ne]."""
     if x.device.type == "cpu":
         return tns_analysis_plain(x, bounds, rc_order, num_filters, rc_q)
     if x.device.type != "cuda":
@@ -148,12 +150,10 @@ def tns_analysis(x, bounds, rc_order, num_filters, rc_q):
                                ("num_filters", num_filters, (S,), i32),
                                ("rc_q", rc_q, (S, 16), torch.float32)])
     global analysis_launches
-    order = _orders(rc_order, num_filters).contiguous()
-    b = bounds.reshape(S, 4).contiguous()
-    rc = rc_q.contiguous()
-    x_t = x.t().contiguous()  # [ne, S]: streams on the fast axis
-    out_t = x_t.new_empty((ne, S))
-    _build.launch("lc3t_tns_analysis", x.get_device(), x_t.data_ptr(), rc.data_ptr(),
-                  b.data_ptr(), order.data_ptr(), out_t.data_ptr(), S, ne)
+    args = [t if t.is_contiguous() else t.contiguous()
+            for t in (x, bounds, rc_order, num_filters, rc_q)]
+    out = x.new_empty((S, ne))
+    _build.launch("lc3t_tns_analysis", x.get_device(), *[t.data_ptr() for t in args],
+                  out.data_ptr(), S, ne)
     analysis_launches += 1
-    return out_t.t()
+    return out

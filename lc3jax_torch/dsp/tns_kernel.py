@@ -59,7 +59,10 @@ def tns_synthesis_plain(tab, x, bandwidth, rc_order, rc_i):
 
 
 def tns_synthesis(tab, x, bandwidth, rc_order, rc_i):
-    """Inverse TNS, x [S, ne] f32 -> [S, ne], for any S >= 1."""
+    """Inverse TNS, x [S, ne] f32 -> [S, ne] contiguous, for any S >= 1.
+
+    The kernel reads x, the parsed fields and the two tables as they are,
+    and looks up each stream's filter bounds and coefficients itself."""
     if x.device.type == "cpu":
         return tns_synthesis_plain(tab, x, bandwidth, rc_order, rc_i)
     if x.device.type != "cuda":
@@ -68,16 +71,20 @@ def tns_synthesis(tab, x, bandwidth, rc_order, rc_i):
     S, ne = x.shape
     if x.dtype != torch.float32:
         raise ValueError(f"tns_synthesis: x must be float32, got {x.dtype}")
-    for name, t, shape in (("bandwidth", bandwidth, (S,)), ("rc_order", rc_order, (S, 2)),
-                           ("rc_i", rc_i, (S, 16))):
-        if t.device != x.device or tuple(t.shape) != shape:
-            raise ValueError(f"tns_synthesis: {name} must be {shape} on {x.device}, "
-                             f"got {tuple(t.shape)} on {t.device}")
-    bounds, rc_q, order = _operands(tab, bandwidth, rc_order, rc_i)
-    bounds, rc_q, order = bounds.contiguous(), rc_q.contiguous(), order.contiguous()
-    x_t = x.t().contiguous()  # [ne, S]: streams on the fast axis
-    out_t = x_t.new_empty((ne, S))
-    _build.launch("lc3t_tns_synthesis", x.get_device(), x_t.data_ptr(), rc_q.data_ptr(),
-                  bounds.data_ptr(), order.data_ptr(), out_t.data_ptr(), S, ne)
+    operands = []
+    for name, t, shape, dtype in (("bandwidth", bandwidth, (S,), torch.int32),
+                                  ("rc_order", rc_order, (S, 2), torch.int32),
+                                  ("rc_i", rc_i, (S, 16), torch.int32),
+                                  ("tab.tns_bounds", tab.tns_bounds, (5, 4), torch.int32),
+                                  ("tab.tns_sin", tab.tns_sin, (17,), torch.float32)):
+        if t.device != x.device or tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"tns_synthesis: {name} must be {dtype} {shape} on {x.device}, "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+        operands.append(t if t.is_contiguous() else t.contiguous())
+    if not x.is_contiguous():
+        x = x.contiguous()
+    out = x.new_empty((S, ne))
+    _build.launch("lc3t_tns_synthesis", x.get_device(), x.data_ptr(),
+                  *[t.data_ptr() for t in operands], out.data_ptr(), S, ne)
     launches += 1
-    return out_t.t()
+    return out

@@ -122,3 +122,95 @@ def test_tns_autocorr_plain_is_the_oracles_fold(fs, dur, bw):
         if lo + k < hi:
             want[s, f, b, k] = seq_sum(x[s, lo : hi - k] * x[s, lo + k : hi])
     assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+# ------------------------------------------------- the lattice chunk by chunk
+
+
+def _lattice_in_chunks(x, bounds, rc_order, num_filters, rc_q, chunk):
+    """The analysis lattice as csrc/tns_analysis.cu splits it: each chunk of
+    `chunk` lines starts from zero state, replays the (up to) 8 active lines
+    before it, then runs its own lines and writes them. Vectorised over
+    (stream, chunk) lanes; each line's update is tns_analysis_plain's, op for
+    op, so equality with the plain version is the chunking argument."""
+    S, ne = x.shape
+    order = K._orders(rc_order, num_filters).long()
+    b = bounds.reshape(S, 4).long()
+    n = torch.arange(ne)[:, None]
+    in_f0 = ((n >= b[:, 0]) & (n < b[:, 1]) & (order[:, 0] > 0)).t()  # [S, ne]
+    in_f1 = ((n >= b[:, 2]) & (n < b[:, 3]) & (order[:, 1] > 0)).t()
+    active = in_f0 | in_f1
+    # each lane's lines: its warm-up (-1 where fewer than 8), then its chunk
+    starts = range(0, ne, chunk)
+    seq, lane_s, writes = [], [], []
+    for s in range(S):
+        act = active[s].nonzero().flatten().numpy()
+        for n0 in starts:
+            warm = act[act < n0][-8:]
+            lines = list(range(n0, min(ne, n0 + chunk)))
+            seq.append([-1] * (8 - len(warm)) + warm.tolist() + lines + [-1] * (chunk - len(lines)))
+            lane_s.append(s)
+            writes.append([False] * 8 + [True] * len(lines) + [False] * (chunk - len(lines)))
+    seq, lane_s, writes = torch.tensor(seq), torch.tensor(lane_s), torch.tensor(writes)
+    kk8 = torch.arange(8)
+    rc0, rc1 = rc_q[lane_s, :8], rc_q[lane_s, 8:]
+    out = x.clone()
+    st = torch.zeros(len(lane_s), 8, dtype=x.dtype)
+    for i in range(seq.shape[1]):
+        li = seq[:, i].clamp(min=0)
+        f1 = in_f1[lane_s, li]
+        a = active[lane_s, li] & (seq[:, i] >= 0)
+        o = torch.where(f1, order[lane_s, 1], order[lane_s, 0])
+        rc = torch.where(f1[:, None], rc1, rc0)
+        xn = x[lane_s, li]
+        t = xn
+        st_save = t
+        cols = []
+        for k in range(7):
+            m = k < o - 1
+            st_tmp = rc[:, k] * t + st[:, k]
+            t = torch.where(m, t + rc[:, k] * st[:, k], t)
+            cols.append(torch.where(m, st_save, st[:, k]))
+            st_save = torch.where(m, st_tmp, st_save)
+        new_st = torch.stack(cols + [st[:, 7]], 1)
+        last = (o - 1).clamp(0, 7)
+        rc_last = rc.gather(1, last[:, None])[:, 0]
+        st_last = new_st.gather(1, last[:, None])[:, 0]
+        t = t + rc_last * st_last
+        new_st = torch.where(kk8[None, :] == last[:, None], st_save[:, None], new_st)
+        st = torch.where(a[:, None], new_st, st)
+        w = writes[:, i]
+        out[lane_s[w], li[w]] = torch.where(a, t, xn)[w]
+    return out
+
+
+def _order_cases(rng, S):
+    """Orders and filter counts with ord1 < ord0, ord1 > ord0, ord0 = 0 and
+    num_filters = 1 with ord1 > 0 among random ones."""
+    ro = rng.integers(0, 9, (S, 2))
+    nf = rng.integers(1, 3, S)
+    ro[0], ro[1], ro[2, 0], ro[3, 1], nf[:3], nf[3] = [7, 3], [2, 8], 0, 6, 2, 1
+    return ro.astype(np.int32), nf.astype(np.int32)
+
+
+@pytest.mark.parametrize("chunk", [1, 8, 32])
+@pytest.mark.parametrize("fs,dur", [(48000, FrameDuration.MS10), (48000, FrameDuration.MS7P5),
+                                    (8000, FrameDuration.MS10)], ids=["48k-10ms", "48k-7.5ms",
+                                                                      "8k-10ms"])
+def test_tns_analysis_in_chunks_equals_plain(fs, dur, chunk):
+    """Chunks with an 8-active-line warm-up from zero state give the plain
+    version bit for bit, over every bandwidth (at 8 kHz the wider ones have
+    bounds past ne) and the order cases of _order_cases."""
+    cfg = Lc3Config.new(fs, dur)
+    tab = encoder_tables(cfg, 1200)
+    S = 16
+    rng = np.random.default_rng(cfg.ne + chunk)
+    x = torch.as_tensor((rng.standard_normal((S, cfg.ne))
+                         * 10 ** rng.uniform(0, 3, (S, 1))).astype(F32))
+    bw = torch.as_tensor(np.r_[4, 4, 4, 4, rng.integers(0, 5, S - 4)])
+    ro, nf = _order_cases(rng, S)
+    rc_q = tab.tns_sin[torch.as_tensor(rng.integers(0, 17, (S, 16)))]
+    args = (x, tab.tns_bounds[bw], torch.as_tensor(ro), torch.as_tensor(nf), rc_q)
+    want = K.tns_analysis_plain(*args)
+    assert int((want != x).any(1).sum()) >= S // 2  # the lattice ran on most streams
+    assert torch.equal(_lattice_in_chunks(*args, chunk), want)

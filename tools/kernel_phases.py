@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Cycles per phase of the parse and pack kernels on a CUDA card: the
-previous ones (commit 308f410, one thread a stream) and the current ones
-(a warp a stream).
+"""Cycles per phase of the range-coder kernels (parse, pack) or of the two
+TNS lattices on a CUDA card, previous kernels against current ones.
 
     git archive 308f410 lc3jax_torch/csrc | tar -x -C checkout_copy/prev
     python3 tools/kernel_phases.py --src checkout_copy/prev/lc3jax_torch/csrc
+    git archive 49dad51 lc3jax_torch/csrc | tar -x -C checkout_copy/pr5
+    python3 tools/kernel_phases.py --kernels tns --src checkout_copy/pr5/lc3jax_torch/csrc
+
+Range coders (the default; the previous ones are commit 308f410's, one
+thread a stream, the current ones a warp a stream):
 
 Copies `parse.cu` and `pack.cu` from --src (the previous kernels) and from
 `lc3jax_torch/csrc` into a temporary directory, stamps `clock64()`
@@ -19,9 +23,23 @@ warp alone on the card): the spectral phase's cycles over the stream's
 symbols is the chain's own latency per symbol.
 
 Prints, per kernel, version and batch, the median and maximum over streams
-of each phase's cycles, and `-Xptxas -v` of all four kernels; ends with one
-JSON line. Needs a card; the instrumented copies are never written into
-the repo.
+of each phase's cycles, and `-Xptxas -v` of all four kernels.
+
+TNS (`--kernels tns`; the previous lattices are commit 49dad51's, a thread
+a stream over a [ne, S] copy of x, the current ones read x in place): the
+analysis lattice on the arguments the encoder gives it for chip_smoke.py's
+bench content, the synthesis lattice on those the decode step gives it, at
+48 kHz / 10 ms / 150 B and S = 2048. Stamps per stream (per warp's lane 0
+for the current analysis): the previous kernels' line loop, the current
+ones' staging, walk or chain, wait for the block and store; each output
+checked equal to the plain version. Then each version runs the bench's four
+streams one at a time (S = 1): the chain's cycles over the stream's active
+lines (for the current analysis, over the lines lane 0 walks) is its own
+latency a line, and `synthesis_alone_cycles` gives chip_smoke.py the
+current synthesis chain's for its floor.
+
+Ends with one JSON line. Needs a card; the instrumented copies are never
+written into the repo.
 """
 
 from __future__ import annotations
@@ -132,6 +150,69 @@ CUR_PACK = (
      "block copy-out"))
 
 
+# The TNS lattices. The previous ones (one thread a stream) stamp their line
+# loop and count its active lines; the current ones stamp staging, walk or
+# chain, the block's wait and the store, per stream (the analysis: lane 0
+# of the stream's warp, and the lines it walks). Stamps are stored as
+# stamps[s * (n + 1) + k], the line count last.
+def _prev_tns(launch_args: str):
+    return ([("float* __restrict__ out_t, int S, int ne) {",
+              "float* __restrict__ out_t, long long* __restrict__ stamps, int S, int ne) {", "replace"),
+             ("  if (s >= S) return;\n", "  long long st_[2];\n  int n_ = 0;\n  st_[0] = clock64();\n",
+              "after"),
+             ("    const int ord = in_f1 ? ord1 : ord0;\n", "    ++n_;\n", "after"),
+             ("    out_t[(size_t)n * S + s] = t;\n  }\n",
+              "  st_[1] = clock64();\n  stamps[(size_t)s * 3] = st_[0];\n"
+              "  stamps[(size_t)s * 3 + 1] = st_[1];\n  stamps[(size_t)s * 3 + 2] = n_;\n", "after"),
+             ("void* stream) {", "void* stream, long long* stamps) {", "replace"),
+             (launch_args, launch_args.replace("out_t, S", "out_t, stamps, S"), "replace")],
+            ("line loop",))
+
+
+_STORE_TNS = ("  __syncthreads();\n  st_[4] = clock64();\n  if ({who}) {{\n"
+              "    for (int k_ = 0; k_ < 5; ++k_) stamps[(size_t)({s}) * 6 + k_] = st_[k_];\n"
+              "    stamps[(size_t)({s}) * 6 + 5] = n_;\n  }}\n")
+PREV_TNS = {k: _prev_tns("x_t, rc_q, bounds, order, out_t, S, ne);")
+            for k in ("tns_synthesis", "tns_analysis")}
+CUR_TNS = {
+    "tns_synthesis": (
+        [("float* __restrict__ y, int S, int ne, int row) {",
+          "float* __restrict__ y, int S, int ne, int row, long long* __restrict__ stamps) {", "replace"),
+         ("  const int tid = threadIdx.x;\n", "  long long st_[5] = {0};\n  int n_ = 0;\n  st_[0] = clock64();\n",
+          "after"),
+         ("  __syncthreads();\n\n  if (tid < nvalid) {", "  st_[1] = clock64();\n", "after_line"),
+         ("      lattice(row_s, n, end, rc, st);\n", "      n_ += end - n;\n", "after"),
+         ("      n = end;\n    }\n  }\n  __syncthreads();\n",
+          "      n = end;\n    }\n    st_[2] = clock64();\n  }\n  __syncthreads();\n  st_[3] = clock64();\n",
+          "replace"),
+         ("  lc3t::store_rows<kThreads>(y + (size_t)s0 * ne, xs, row, ne, nvalid);\n",
+          _STORE_TNS.format(who="tid < nvalid", s="s0 + tid"), "after"),
+         ("float* y, int S, int ne, void* stream) {",
+          "float* y, int S, int ne, void* stream, long long* stamps) {", "replace"),
+         ("tns_sin, y, S, ne, row);", "tns_sin, y, S, ne, row, stamps);", "replace")],
+        ("stage", "chain", "wait for the block", "store")),
+    "tns_analysis": (
+        [("float* __restrict__ y, int S, int ne,\n                    int row) {",
+          "float* __restrict__ y, int S, int ne,\n                    int row, long long* __restrict__ stamps) {",
+          "replace"),
+         ("  const int tid = threadIdx.x;\n", "  long long st_[5] = {0};\n  int n_ = 0;\n  st_[0] = clock64();\n",
+          "after"),
+         ("// lines outside the filters\n  __syncthreads();\n", "  st_[1] = clock64();\n", "after"),
+         ("          }\n        }\n        rank += len[j];\n",
+          "          }\n          n_ += b - a;\n        }\n        rank += len[j];\n", "replace"),
+         ("        rank += len[j];\n      }\n    }\n  }\n  __syncthreads();\n",
+          "        rank += len[j];\n      }\n    }\n    st_[2] = clock64();\n  }\n  __syncthreads();\n"
+          "  st_[3] = clock64();\n", "replace"),
+         ("  lc3t::store_rows<kThreads>(y + (size_t)s0 * ne, ys, row, ne, nvalid);\n",
+          _STORE_TNS.format(who="lane == 0 && u < nvalid", s="s0 + u"), "after"),
+         ("float* y, int S,\n                                 int ne, void* stream) {",
+          "float* y, int S,\n                                 int ne, void* stream, long long* stamps) {", "replace"),
+         ("rc_q, y, S, ne, row);", "rc_q, y, S, ne, row, stamps);", "replace")],
+        ("stage", "lane 0's walk", "wait for the block", "store")),
+}
+TNS_SPECS = {"previous": PREV_TNS, "current": CUR_TNS}
+
+
 def instrument(text: str, edits, entry: str) -> str:
     """Apply the edits (each anchor must occur once) and rename the C entry
     `entry` to `entry`_phase."""
@@ -154,9 +235,173 @@ def instrument(text: str, edits, entry: str) -> str:
     return text.replace(old, f'extern "C" int {entry}_phase(')
 
 
+def build_tns(nvcc: str, dirs: dict, kernels=("tns_synthesis", "tns_analysis")) -> dict:
+    """{version: ctypes library} of the instrumented TNS kernels of each
+    version's source directory, built with the port's nvcc flags in a
+    temporary directory."""
+    import ctypes
+
+    from lc3jax_torch import _build
+
+    tmp = Path(tempfile.mkdtemp())
+    libs = {}
+    for version, d in dirs.items():
+        srcs = []
+        for kern in kernels:
+            f = tmp / f"{version}_{kern}.cu"
+            f.write_text(instrument((d / f"{kern}.cu").read_text(), TNS_SPECS[version][kern][0],
+                                    f"lc3t_{kern}"))
+            srcs.append(str(f))
+        so = tmp / f"libtns_{version}.so"
+        r = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I", str(d), "-shared", "-o", str(so), *srcs],
+                           capture_output=True, text=True)
+        if r.returncode:
+            raise RuntimeError(f"kernel_phases: nvcc failed on the {version} TNS kernels:\n{r.stderr}")
+        L = ctypes.CDLL(str(so))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        for kern in kernels:
+            fn = getattr(L, f"lc3t_{kern}_phase")
+            if version == "previous":
+                fn.argtypes = [P] * 5 + [I] * 2 + [P, P]
+            else:
+                fn.argtypes = ([P] * 7 if kern == "tns_synthesis" else [P] * 6) + [I] * 2 + [P, P]
+        libs[version] = L
+    return libs
+
+
+def run_tns(L, version: str, kern: str, args) -> "np.ndarray":
+    """One launch of the instrumented `kern` of `version` on the wrapper's
+    arguments `args` (tns_synthesis: tab, x, bandwidth, rc_order, rc_i;
+    tns_analysis: x, bounds, rc_order, num_filters, rc_q); checks the output
+    equal to the plain version and returns the stamps [S, phases + 2]."""
+    import torch
+
+    from lc3jax_torch.dsp import tns_enc_kernel, tns_kernel
+
+    if kern == "tns_synthesis":
+        tab, x, bw, ro, ri = args
+        plain = tns_kernel.tns_synthesis_plain(*args)
+    else:
+        x, bnd, ro, nf, rcq = args
+        plain = tns_enc_kernel.tns_analysis_plain(*args)
+    S, ne = x.shape
+    stamps = torch.zeros(S, len(TNS_SPECS[version][kern][1]) + 2, dtype=torch.int64, device=x.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if version == "previous":
+        x_t = x.t().contiguous()
+        out = torch.empty_like(x_t)
+        if kern == "tns_synthesis":
+            ops = [tab.tns_sin[ri.long()], tab.tns_bounds[bw.long()], ro.to(torch.int32)]
+        else:
+            ops = [rcq, bnd.reshape(S, 4), tns_enc_kernel._orders(ro, nf)]
+        ops = [t.contiguous() for t in ops]
+        err = getattr(L, f"lc3t_{kern}_phase")(x_t.data_ptr(), *[t.data_ptr() for t in ops],
+                                               out.data_ptr(), S, ne, stream, stamps.data_ptr())
+        out = out.t()
+    else:
+        out = torch.empty_like(x)
+        ops = [bw, ro, ri, tab.tns_bounds, tab.tns_sin] if kern == "tns_synthesis" else [bnd, ro, nf, rcq]
+        ops = [t.contiguous() for t in ops]
+        err = getattr(L, f"lc3t_{kern}_phase")(x.contiguous().data_ptr(), *[t.data_ptr() for t in ops],
+                                               out.data_ptr(), S, ne, stream, stamps.data_ptr())
+    if err:
+        raise RuntimeError(f"{version} {kern}_phase: CUDA error {err}")
+    torch.cuda.synchronize()
+    if not torch.equal(out, plain):
+        raise AssertionError(f"instrumented {version} {kern} != plain")
+    return stamps.cpu().numpy()
+
+
+def alone_cycles(L, version: str, kern: str, args, streams=range(4)) -> list:
+    """Cycles a line of the chain phase (the line loop, or the current
+    kernels' chain or lane 0's walk) with each of `streams` that has an
+    active line alone on the card (S = 1)."""
+    i = 0 if version == "previous" else 1
+    per = []
+    for s in streams:
+        one = tuple(a[s : s + 1] if hasattr(a, "shape") and a.dim() and a.shape[0] == args[1].shape[0]
+                    else a for a in args)
+        st = run_tns(L, version, kern, one)[0]
+        if st[-1] > 0:  # a stream with no active line has no chain
+            per.append(float(st[i + 1] - st[i]) / int(st[-1]))
+    return per
+
+
+def synthesis_alone_cycles(args) -> list:
+    """Cycles a line of the current tns_synthesis chain, each of the first
+    four streams of the decode step's arguments `args` that has a filter on
+    alone (S = 1)."""
+    from lc3jax_torch import _build
+
+    L = build_tns(_build.find_nvcc(), {"current": _build.CSRC}, ("tns_synthesis",))["current"]
+    return alone_cycles(L, "current", "tns_synthesis", args)
+
+
+def tns_main(src: Path) -> int:
+    import torch
+
+    import chip_smoke as cs
+    from lc3jax_torch import _build
+    from lc3jax_torch.coding import device as cdev
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.convert import decoder_tables
+    from lc3jax_torch.dsp import decoder as D
+    from lc3jax_torch.serving import BatchEncoder
+
+    card = cs.card_line()
+    print(card, flush=True)
+    nvcc = _build.find_nvcc()
+    dirs = {"previous": src, "current": _build.CSRC}
+    ptxas = {}
+    for version, d in dirs.items():
+        for kern in ("tns_synthesis", "tns_analysis"):
+            r = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", "/dev/null",
+                                str(d / f"{kern}.cu")], capture_output=True, text=True)
+            ptxas[f"{version} {kern}"] = [ln.split(":", 1)[-1].strip() for ln in r.stderr.splitlines()
+                                          if "registers" in ln or "stack frame" in ln]
+            print(f"ptxas {version} {kern}: {ptxas[f'{version} {kern}']}", flush=True)
+    libs = build_tns(nvcc, dirs)
+
+    dev = torch.device("cuda")
+    cfg = Lc3Config.new(48000, FrameDuration.MS10)
+    bench = np.load(ROOT / "tests" / "goldens" / "torch_bench_content.npz")
+    tile = np.arange(S) % 4
+    tab = decoder_tables(cfg, 150 * 8, dev)
+    fr = cdev.device_parse(cfg, 150, torch.as_tensor(bench["frames"][tile, 0], device=dev))
+    cases = {"tns_synthesis": (tab, D.pre_tns(tab, fr), fr.bandwidth, fr.rc_order, fr.rc_i)}
+    enc = BatchEncoder(cfg, S, 150, device="cuda")
+    cases["tns_analysis"] = cs.capture_kernel_inputs(
+        enc, torch.as_tensor(bench["pcm_in"][tile, 0], device=dev))["tns_analysis"]
+    result = {"card": card, "ptxas": ptxas, "phases": {}, "alone": {}}
+    for version, L in libs.items():
+        for kern, args in cases.items():
+            names = TNS_SPECS[version][kern][1]
+            st = run_tns(L, version, kern, args)
+            d = np.diff(st[:, : len(names) + 1], axis=1)
+            ph = {k: [float(np.median(d[:, i])), int(d[:, i].max())] for i, k in enumerate(names)}
+            tot = st[:, len(names)] - st[:, 0]
+            ph["total"] = [float(np.median(tot)), int(tot.max())]
+            ph["lines"] = [float(np.median(st[:, -1])), int(st[:, -1].max())]
+            result["phases"][f"{version} {kern}"] = ph
+            result["alone"][f"{version} {kern}"] = alone_cycles(L, version, kern, args)
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True).stdout.strip()
+    result["sm_clock"] = clocks
+    for key, phases in result["phases"].items():
+        print(f"{key}, S={S}: " + "; ".join(f"{k} {v[0]:.0f} ({v[1]})" for k, v in phases.items()))
+    for key, per in result["alone"].items():
+        print(f"{key}, one stream alone, cycles a line: " + ", ".join(f"{c:.1f}" for c in per))
+    print(f"SM clock after the runs: {clocks}")
+    print(json.dumps(result))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--src", type=Path, required=True, help="directory with the previous parse.cu, pack.cu")
+    ap.add_argument("--src", type=Path, required=True,
+                    help="directory with the previous kernels' sources")
+    ap.add_argument("--kernels", choices=("range", "tns"), default="range",
+                    help="the range coders (parse, pack) or the TNS lattices")
     args = ap.parse_args()
 
     import torch
@@ -164,6 +409,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phases: no CUDA device", file=sys.stderr)
         return 1
+    if args.kernels == "tns":
+        return tns_main(args.src)
     import chip_smoke as cs
     from lc3jax_torch import _build
     from lc3jax_torch import tables as T
