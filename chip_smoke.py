@@ -28,9 +28,15 @@ stated:
    content (SNS PVQ, TNS autocorrelation, TNS analysis, bit model: equal;
    the autocorrelation also at S = 2047, the TNS analysis also on the
    shapes of tns_cases and with filter bounds beyond LC3's tables, which
-   overlap);
+   overlap; the SNS PVQ also on pvq_cases: S = 2047 with ties on |x| in
+   set B, across the set-A/set-B edge and on every lane, an all-zero set B,
+   zeros and -0.0, errors tied between two candidates and every shape, and
+   S = 1; the bit model also on bitmodel_cases: rate flags 0 and 512 at
+   8 kHz / 10 ms, 16 kHz / 7.5 ms, 48 kHz / 7.5 ms and 48 kHz / 10 ms,
+   lastnz = 2 and = ne, ladder depths up to 14, S = 2047 and S = 1);
 4b. pack-kernels: the bit model with emit_pack against its plain version
-   (and its table part against the one without), and the pack kernel
+   (and its table part against the one without) on the random, bench and
+   bitmodel_cases inputs, and the pack kernel
    against its plain version and the C++ host packer, on the fields of four
    batches: the bench content, full-scale noise (48 kHz / 150 B, every
    frame in LSB mode), mixed content at 48 kHz / 10 ms / 400 B and at
@@ -71,7 +77,10 @@ stated:
    each. The TNS synthesis chain floor: the fewest cycles a line one of the
    bench's streams takes alone (S = 1, an instrumented copy of the kernel:
    tools/kernel_phases.py), times the most active lines a stream of the
-   decode step runs, at the card's highest SM clock.
+   decode step runs, at the card's highest SM clock; the SNS PVQ chain floor
+   likewise: the fewest cycles a greedy round takes with one of the bench's
+   streams alone, times the most rounds a stream of the encoder's bench
+   arguments needs.
    The encode DSP step (CUDA events, host wall, thread CPU time), the
    whole encode with the host pack (host wall, thread CPU time) and the
    fused encode step (CUDA events, host wall) alternate over 20 reps, each
@@ -81,8 +90,8 @@ stated:
 Then the card's line, one JSON line with the kernels (each with its event
 and device times and its bound: the larger of its bytes over 3.35 TB/s
 and its f32 operations over 67 TFLOP/s, the H100 SXM's published peaks,
-counted from this run's inputs; the TNS synthesis also with its chain
-floor), and last the device line. Uses no JAX
+counted from this run's inputs; the TNS synthesis and the SNS PVQ also
+with their chain floor), and last the device line. Uses no JAX
 and nothing of the lc3jax package: the references are the stored goldens
 of tests/goldens (tools/gen_torch_encode_goldens.py made the bench
 content's).
@@ -279,7 +288,7 @@ def device_ms(fn, kernel: str | None, reps: int = REPS) -> float:
         fn()
     torch.cuda.synchronize()
     named = re.compile(rf"(?<![A-Za-z_]){kernel}" if kernel else ".")
-    for _ in range(3):  # a session that recorded none of the launches is taken again
+    for _ in range(3):  # a session that lost launches is taken again
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -287,10 +296,10 @@ def device_ms(fn, kernel: str | None, reps: int = REPS) -> float:
         evs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                      if e.device_type == DeviceType.CUDA and named.search(e.name)
                      and not e.name.startswith(("Memcpy", "Memset")))
-        if evs:
+        if evs and len(evs) % reps == 0:
             break
-        print(f"[profiler] no launch of {kernel or 'any kernel'} recorded in {reps} calls; "
-              "profiling again", flush=True)
+        print(f"[profiler] {len(evs)} launches of {kernel or 'any kernel'} recorded in {reps} "
+              "calls; profiling again", flush=True)
     if not evs or len(evs) % reps:
         raise AssertionError(f"profiler: {len(evs)} launches of {kernel or 'any kernel'} "
                              f"in {reps} calls")
@@ -380,6 +389,76 @@ def overlapping_bounds(S: int, ne: int, seed: int) -> np.ndarray:
     out[k == 0] = np.stack([a[:, [0, 3]], a[:, [1, 2]]], 1)[k == 0]
     out[k == 1] = np.stack([a[:, [1, 2]], a[:, [0, 3]]], 1)[k == 1]
     return out.astype(np.int32)
+
+
+def pvq_cases(dev) -> dict:
+    """{label: (t2rot,)} on the card for the SNS PVQ search: S = 2047 rows
+    whose ties decide the result (equal |x| in set B, across the set-A/set-B
+    edge at lane 10 and on every lane; an all-zero set B; zeros and -0.0; a
+    single pulse halfway between two searched gains, so that two candidates'
+    errors tie), random rows, and tests/goldens/torch_encode.npz's t2rot,
+    which reach every shape; and its first row alone (S = 1)."""
+    import torch
+
+    from lc3jax_torch.dsp.sns_kernel import GAINS
+
+    rng = np.random.default_rng(27)
+    S = S_MAIN - 1
+    r = (rng.standard_normal((S, 16)) * 10 ** rng.uniform(-1, 2, (S, 1))).astype(np.float32)
+    sign = lambda shape: np.where(rng.uniform(size=shape) < 0.5, -1, 1).astype(np.float32)
+    k = np.arange(S) % 8
+    r[k == 0, 10:] = 0.0
+    r[k == 1, 10:] = np.float32(1.25) * sign(((k == 1).sum(), 6))
+    r[k == 2, 8:12] = 2.5
+    r[k == 2, 3] = -2.5
+    r[k == 3] = np.round(rng.standard_normal(((k == 3).sum(), 16)) * 3)
+    r[k == 4] = np.float32(0.75) * sign(((k == 4).sum(), 16))
+    r[k == 5, 12:] = -0.0
+    r[k == 5, :4] = 0.0
+    pairs = [(GAINS[3, 0], GAINS[3, 1]), (GAINS[3, 2], GAINS[3, 3]), (GAINS[1, 0], GAINS[2, 0]),
+             (GAINS[2, 1], GAINS[2, 2])]
+    for i in np.flatnonzero(k == 6):
+        a, b = pairs[(i // 8) % 4]
+        r[i] = 0.0
+        r[i, (i // 32) % 16] = np.float32((np.float32(a) + np.float32(b)) / 2) * sign(())
+    gold = np.load(ROOT / "tests" / "goldens" / "torch_encode.npz")["sns_t2rot"]
+    r[: len(gold)] = gold
+    r[~np.abs(r).any(1), 0] = 1.0  # no all-zero row: its projection divides by zero
+    t2 = torch.as_tensor(r, device=dev)
+    return {f"ties S={S}": (t2,), "S=1": (t2[:1],)}
+
+
+def bitmodel_cases(dev) -> dict:
+    """{label: wrapper arguments} on the card for the bit model: the tuples
+    of random spectra at 8 kHz / 10 ms, 16 kHz / 7.5 ms, 48 kHz / 7.5 ms and
+    48 kHz / 10 ms (NT = 40, 60, 150, 200) with rate flags 0 and 512, ladder
+    depths up to 14, a stream with lastnz = 2 and one with lastnz = ne in the
+    same batch, at S = 2047, and that last stream alone (S = 1)."""
+    import torch
+
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.dsp.encoder import tuple_symbols
+
+    rng = np.random.default_rng(28)
+    out = {}
+    for fs, dur in ((8000, FrameDuration.MS10), (16000, FrameDuration.MS7P5),
+                    (48000, FrameDuration.MS7P5), (48000, FrameDuration.MS10)):
+        c = Lc3Config.new(fs, dur)
+        S = S_MAIN - 1
+        mag = (rng.standard_normal((S, c.ne)) * 3).astype(np.int64)
+        xq = np.clip(mag * (1 << rng.integers(0, 15, (S, c.ne))) // 8, -32768, 32767)
+        xq[np.arange(c.ne)[None, :] >= rng.integers(2, c.ne + 1, (S, 1))] = 0  # ragged ends
+        xq[0, 2:] = 0  # lastnz = 2
+        xq[1, -1] = -32768  # lastnz = ne, the deepest ladder (14)
+        ts = tuple_symbols(torch.as_tensor(xq.astype(np.int32), device=dev))
+        if int(ts["g"].max()) != 14:
+            raise AssertionError(f"bitmodel_cases: ladder depths reach {int(ts['g'].max())}, not 14")
+        for rf in (0, 512):
+            args = (ts["c"], ts["g"], ts["sym"], rf, c.ne, ts["lastnz"])
+            out[f"{fs // 1000}k/{dur.name} rf={rf} S={S}"] = args
+            out[f"{fs // 1000}k/{dur.name} rf={rf} S=1"] = tuple(a[1:2] if torch.is_tensor(a) else a
+                                                                 for a in args)
+    return out
 
 
 def active_lines(tab, bandwidth, rc_order, ne: int):
@@ -635,7 +714,11 @@ def main() -> int:
     lines = []
     more = {"tns_autocorr": {f"random S={S_MAIN - 1}": (rnd[: S_MAIN - 1],
                                                         etab.tns_sub[bw_r[: S_MAIN - 1]])},
-            "tns_analysis": {k: v[1] for k, v in tns_more.items()}}
+            "tns_analysis": {k: v[1] for k, v in tns_more.items()},
+            "sns_pvq": pvq_cases(dev), "bitmodel_table_part": bitmodel_cases(dev)}
+    shapes = set(sns_kernel.sns_pvq_plain(*more["sns_pvq"][f"ties S={S_MAIN - 1}"])[3].tolist())
+    if shapes != {0, 1, 2, 3}:
+        raise AssertionError(f"pvq_cases reach shapes {sorted(shapes)}, not all four")
     x_o, _, ro_o, nf_o, ri_o = (torch.as_tensor(a, device=dev) for a in tns_random(cfg, S_MAIN, 25))
     more["tns_analysis"]["48k/10ms overlapping filters"] = (
         x_o, torch.as_tensor(overlapping_bounds(S_MAIN, cfg.ne, 26), device=dev), ro_o, nf_o,
@@ -652,8 +735,8 @@ def main() -> int:
 
     # ---- 4b. the bit model's emit_pack and the pack kernel against their plain versions
     bm = bitmodel_kernel
-    for label, args in (("random", random_args["bitmodel_table_part"]),
-                        ("bench", real["bitmodel_table_part"])):
+    for label, args in [("random", random_args["bitmodel_table_part"]),
+                        ("bench", real["bitmodel_table_part"])] + list(more["bitmodel_table_part"].items()):
         emitted = bm.bitmodel_table_part(*args, emit_pack=True)
         equal_outputs(f"bitmodel emit_pack ({label})", emitted,
                       bm.bitmodel_table_part_plain(*args, emit_pack=True))
@@ -700,7 +783,8 @@ def main() -> int:
     if not any(v[2]["carry"] for v in packed.values()):
         raise AssertionError("pack: no batch has a frame whose carry was resolved")
     torch.cuda.synchronize()
-    log("pack-kernels", "bitmodel emit_pack: equal (random and bench inputs); " + "; ".join(lines))
+    log("pack-kernels", f"bitmodel emit_pack: equal (random and bench inputs, "
+                        f"{', '.join(more['bitmodel_table_part'])}); " + "; ".join(lines))
 
     # ---- 4c. the parse kernel on the packed batches, every field
     lines, n_lsb = [], 0
@@ -902,6 +986,11 @@ def main() -> int:
     chain_lines = int(active_lines(tab, bw_s, ro_s, cfg.ne).max())
     clock = sm_clock_mhz()
     chain_floor = min(chain_cyc) * chain_lines / (clock * 1e3)
+    # the SNS PVQ's: the fewest cycles a greedy round takes with one of the
+    # bench's streams alone, times the most rounds a stream of the encoder's
+    # bench arguments needs
+    pvq_cyc, pvq_rounds = kernel_phases.pvq_alone_cycles(real["sns_pvq"][0])
+    pvq_floor = min(pvq_cyc) * pvq_rounds / (clock * 1e3)
     # the LTPF reads only xcat[:, H - l_num:] and hist_y[:, H - rb:] (the
     # window tests/test_torch_ltpf.py pins), its other arguments whole, and
     # writes yA and yB
@@ -929,15 +1018,15 @@ def main() -> int:
     bounds["tns_analysis"] = bound(2 * nbytes_of(xn) + nbytes_of(bnd, ro_e, nf_e, rcq),
                                    float(work))
     # the bit model reads c, g and sym of each stream's coded tuples only
-    # (those below (lastnz + 1) >> 1), lastnz and the two tables, and writes
-    # every tuple
+    # (those below (lastnz + 1) >> 1), lastnz and its rate flag's precomposed
+    # cost tables (bitmodel_kernel.compose_tables), and writes every tuple
     cb, gb, sb, _, _, lb = real["bitmodel_table_part"]
     coded = float(torch.clamp_max((lb.long() + 1) >> 1, cb.shape[1]).sum())
     per_tuple = cb.element_size() + gb.element_size() + sb.element_size()
-    bm_bytes = coded * per_tuple + nbytes_of(lb, *bitmodel_kernel.tables(dev)) + cb.numel() * 4
+    bm_bytes = coded * per_tuple + nbytes_of(lb) + bitmodel_kernel.ESC_OP * 4 + cb.numel() * 4
     bounds["bitmodel_table_part"] = bound(bm_bytes, 0.0)
-    # with emit_pack it also reads the coder's two tables and writes 5 operands a tuple
-    emit_bound = bound(bm_bytes + nbytes_of(*bitmodel_kernel.coder_tables(dev))
+    # with emit_pack it also reads the operand tables and writes 5 operands a tuple
+    emit_bound = bound(bm_bytes + (bitmodel_kernel.TABLE_WORDS - bitmodel_kernel.ESC_OP) * 4
                        + 5 * cb.numel() * 4, 0.0)
     # the pack kernel reads each stream's coded lines of x_q, the residual bit
     # of each line it may write, its 34 side fields and the operands of the
@@ -1003,6 +1092,10 @@ def main() -> int:
                      f"bench's four streams with a filter on); x {chain_lines} active lines at "
                      f"{clock:.0f} MHz = chain floor "
                      f"{chain_floor:.5f} ms against {dev_ms['tns_synthesis']:.4f} ms on the device")
+    log("pvq-chain", f"{card}: sns_pvq one stream alone "
+                     f"{', '.join(f'{c:.1f}' for c in pvq_cyc)} cycles a greedy round (the "
+                     f"bench's four streams); x {pvq_rounds} rounds at {clock:.0f} MHz = chain floor "
+                     f"{pvq_floor:.5f} ms against {dev_ms['sns_pvq']:.4f} ms on the device")
     log("host-pack", f"{card}: the C++ host packer (native/lc3_bitstream.cc, {host_pack.N_THREADS} "
                      f"threads) on the pack kernel's bench fields, S={S_MAIN}, 150 B: "
                      f"{spread(host_ms)} ms wall, median [min-max] of {REPS}")
@@ -1037,6 +1130,9 @@ def main() -> int:
     kernels[list(meta).index("tns_autocorr")].update(library_device_ms=library_dev["tns_autocorr"])
     kernels[list(meta).index("tns_synthesis")].update(
         chain_floor_ms=chain_floor, chain_cycles_a_line=min(chain_cyc), chain_lines=chain_lines,
+        sm_clock_mhz=clock)
+    kernels[list(meta).index("sns_pvq")].update(
+        chain_floor_ms=pvq_floor, chain_cycles_a_round=min(pvq_cyc), chain_rounds=pvq_rounds,
         sm_clock_mhz=clock)
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -21,7 +21,10 @@ rows to a multiple of 8 (TPU tiling); `convert.pack_tables_from_jax` drops
 that pad.
 
 The TPU kernel fetched the tables with one-hot matmuls on the MXU, its
-workaround for gathers; here they are plain lookups. The result is exact
+workaround for gathers; here they are plain lookups. Like the TPU kernel's
+`_bitmodel_tables`, the CUDA kernel reads tables precomposed for the
+launch's rate flag (`compose_tables`, exact integer numpy), so a tuple costs
+one lookup per ladder level and one for its symbol. The result is exact
 integers (int32). A tuple at or past the stream's own (lastnz + 1) >> 1
 holds 0 in both versions, in every output: the tail masks its cost and the
 pack kernel never reads its operands.
@@ -56,6 +59,34 @@ def coder_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """(AC_SPEC_CUMFREQ, AC_SPEC_FREQ), int32 [64, 17] on device: emit_pack's."""
     return (torch.as_tensor(np.asarray(T.AC_SPEC_CUMFREQ, np.int32), device=device),
             torch.as_tensor(np.asarray(T.AC_SPEC_FREQ, np.int32), device=device))
+
+
+# Offsets of the precomposed tables in compose_tables' buffer (csrc/bitmodel.cu)
+ESC_WORD, SYM_COST, ESC_OP, SYM_OP, TABLE_WORDS = 0, 2048, 3136, 5184, 6272
+
+
+def compose_tables(rate_flag: int) -> np.ndarray:
+    """The CUDA kernel's tables for one rate flag, int32 [6272], exact:
+    ESC_WORD + (hi * 4 + L) * 256 + c: pki | AC_SPEC_BITS[pki, 16] << 6, where
+    pki = AC_SPEC_LOOKUP[c + rate_flag + 256 * hi + 1024 * L];
+    SYM_COST + 17 * pki + sym: AC_SPEC_BITS[pki, sym];
+    ESC_OP + (hi * 4 + L) * 256 + c: CUMFREQ[pki, 16] + 1024 * FREQ[pki, 16];
+    SYM_OP + 17 * pki + sym: CUMFREQ[pki, sym] + 1024 * FREQ[pki, sym]."""
+    lut = np.asarray(T.AC_SPEC_LOOKUP, np.int64)
+    bits = np.asarray(T.AC_SPEC_BITS, np.int64)
+    op = np.asarray(T.AC_SPEC_CUMFREQ, np.int64) + 1024 * np.asarray(T.AC_SPEC_FREQ, np.int64)
+    hl = np.arange(8)[:, None]  # row hi * 4 + L
+    pki = lut[np.arange(256)[None, :] + rate_flag + 256 * (hl // 4) + 1024 * (hl % 4)]
+    out = np.concatenate([(pki + (bits[pki, 16] << 6)).ravel(), bits.ravel(),
+                          op[pki, 16].ravel(), op.ravel()])
+    assert out.shape == (TABLE_WORDS,) and 0 <= out.min() and out.max() < 2**31
+    return out.astype(np.int32)
+
+
+@lru_cache(maxsize=None)
+def composed_tables(device: torch.device, rate_flag: int) -> torch.Tensor:
+    """compose_tables(rate_flag) on device."""
+    return torch.as_tensor(compose_tables(rate_flag), device=device)
 
 
 def bitmodel_table_part_plain(c, g, sym, rate_flag: int, ne: int, lastnz,
@@ -101,14 +132,12 @@ def bitmodel_table_part(c, g, sym, rate_flag: int, ne: int, lastnz, emit_pack: b
     global launches, emit_launches
     # the contiguous views stay bound to names until the launch is queued
     c32, g32, sym32, lnz32 = (t.contiguous() for t in (c, g, sym, lastnz))
-    lut, bits = tables(c.device)
-    cum, frq = coder_tables(c.device)
+    tab = composed_tables(c.device, rate_flag)
     out = c32.new_empty((S, NT))
     pk = c32.new_empty((5 * NT, S)) if emit_pack else None
     _build.launch("lc3t_bitmodel", c.get_device(), c32.data_ptr(), g32.data_ptr(),
-                  sym32.data_ptr(), lnz32.data_ptr(), lut.data_ptr(), bits.data_ptr(),
-                  cum.data_ptr(), frq.data_ptr(), out.data_ptr(),
-                  pk.data_ptr() if emit_pack else None, S, NT, ne // 4, rate_flag)
+                  sym32.data_ptr(), lnz32.data_ptr(), tab.data_ptr(), out.data_ptr(),
+                  pk.data_ptr() if emit_pack else None, S, NT, ne // 4)
     launches += 1
     if emit_pack:
         emit_launches += 1

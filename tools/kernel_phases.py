@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
-"""Cycles per phase of the range-coder kernels (parse, pack) or of the two
-TNS lattices on a CUDA card, previous kernels against current ones.
+"""Cycles per phase of the range-coder kernels (parse, pack), the two TNS
+lattices, the SNS PVQ search or the bit model on a CUDA card, previous
+kernels against current ones.
 
     git archive 308f410 lc3jax_torch/csrc | tar -x -C checkout_copy/prev
     python3 tools/kernel_phases.py --src checkout_copy/prev/lc3jax_torch/csrc
     git archive 49dad51 lc3jax_torch/csrc | tar -x -C checkout_copy/pr5
     python3 tools/kernel_phases.py --kernels tns --src checkout_copy/pr5/lc3jax_torch/csrc
+    git archive bb65687 lc3jax_torch/csrc | tar -x -C checkout_copy/pr6
+    python3 tools/kernel_phases.py --kernels sns --src checkout_copy/pr6/lc3jax_torch/csrc
+    python3 tools/kernel_phases.py --kernels bitmodel --src checkout_copy/pr6/lc3jax_torch/csrc
 
 Range coders (the default; the previous ones are commit 308f410's, one
 thread a stream, the current ones a warp a stream):
@@ -38,8 +42,27 @@ lines (for the current analysis, over the lines lane 0 walks) is its own
 latency a line, and `synthesis_alone_cycles` gives chip_smoke.py the
 current synthesis chain's for its floor.
 
-Ends with one JSON line. Needs a card; the instrumented copies are never
-written into the repo.
+SNS PVQ (`--kernels sns`; the previous search is commit bb65687's, a
+thread a stream; the current one has a greedy warp, a lane a stream, and 16
+search lanes a stream): on the arguments the encoder gives it for
+chip_smoke.py's bench content at S = 2048, the cycles of each phase per
+stream (load and projection, shapes 3, 2 and 1, and what follows the
+rounds) and the greedy rounds it needed, every output checked equal to the
+plain version; then the bench's first four streams alone (S = 1): the
+rounds' cycles over their count is a round's own latency, and
+`pvq_alone_cycles` gives chip_smoke.py the current kernel's for its chain
+floor.
+
+Bit model (`--kernels bitmodel`; the previous one is commit bb65687's, a
+thread a tuple, each block staging the whole tables): on the encoder's bench
+arguments at S = 2048, with and without emit_pack, the cycles of each block
+staging its tables, on its tuples, and (the current kernel with emit_pack)
+from the wait for the transposed operand rows to their last store; each
+output checked equal to the plain version.
+
+Each mode prints `-Xptxas -v` of both versions' kernels and ends with one
+JSON line. Needs a card; the instrumented copies are never written into the
+repo.
 """
 
 from __future__ import annotations
@@ -213,11 +236,105 @@ CUR_TNS = {
 TNS_SPECS = {"previous": PREV_TNS, "current": CUR_TNS}
 
 
+# The SNS PVQ search. Stamps per stream and the greedy rounds the stream
+# needed, last: stamps[s * (n + 1) + k]. The previous kernel's thread a
+# stream stores them all; in the current one the greedy warp's lane for the
+# stream stores the stamps up to the rounds' end and the count, and the
+# stream's lane 0 of the search the last two (the same SM's clock).
+_PVQ_ENTRY = [
+    ("const float* __restrict__ gains, int S) {",
+     "const float* __restrict__ gains, int S, long long* __restrict__ stamps) {", "replace"),
+    ("int S, void* stream) {", "int S, void* stream, long long* stamps) {", "replace"),
+    ("gains, S);", "gains, S, stamps);", "replace")]
+PVQ_SPECS = {
+    "previous": (_PVQ_ENTRY + [
+        ("  if (s >= S) return;\n", "  long long st_[9];\n  int n_ = 0;\n  st_[0] = clock64();\n", "after"),
+        ("  // shape 3: K = 6", "  st_[1] = clock64();\n", "before"),
+        ("    greedy<16>(y3, ax, a, need);\n", "    n_ += need;\n", "after"),
+        ("  // shape 2: two more", "  st_[2] = clock64();\n", "before"),
+        ("greedy<16>(y2, ax, a, true);\n", "  n_ += 2;\n", "after"),
+        ("  // shape 1: strip set B", "  st_[3] = clock64();\n", "before"),
+        ("    greedy<10>(y1, ax, a, need);\n", "    n_ += need;\n", "after"),
+        ("  // shape 0: y1 plus one pulse", "  st_[4] = clock64();\n", "before"),
+        ("  float xq0[16], xq1[16], xq2[16], xq3[16];\n", "  st_[5] = clock64();\n", "before"),
+        ("  // shape/gain search in the order", "  st_[6] = clock64();\n", "before"),
+        ("#pragma unroll\n  for (int n = 0; n < 16; ++n) {  // per-lane selects", "  st_[7] = clock64();\n",
+         "before"),
+        ("  g_sel_out[s] = g_sel;\n", "  __threadfence_block();\n  st_[8] = clock64();\n"
+         "  for (int k_ = 0; k_ < 9; ++k_) stamps[(size_t)s * 10 + k_] = st_[k_];\n"
+         "  stamps[(size_t)s * 10 + 9] = n_;\n", "after")],
+        ("load, projection", "shape 3", "shape 2", "shape 1", "set B, signs", "normalisations",
+         "shape/gain search", "stores")),
+    "current": (_PVQ_ENTRY + [
+        ("  const int tid = threadIdx.x;\n", "  long long st_[7];\n  int n_ = 0;\n  st_[0] = clock64();\n",
+         "after"),
+        ("    // shape 3: K = 6", "    st_[1] = clock64();\n", "before"),
+        ("count < 6; ++r, ++count) greedy<16>(ty, ax, a);",
+         "count < 6; ++r, ++count) {\n      greedy<16>(ty, ax, a);\n      ++n_;\n    }", "replace"),
+        ("    // shape 2: two more", "    st_[2] = clock64();\n", "before"),
+        ("for (int r = 0; r < 2; ++r) greedy<16>(ty, ax, a);",
+         "for (int r = 0; r < 2; ++r) {\n      greedy<16>(ty, ax, a);\n      ++n_;\n    }", "replace"),
+        ("    // shape 1: strip set B", "    st_[3] = clock64();\n", "before"),
+        ("count < 10; ++r, ++count) greedy<10>(ty, ax, a);\n",
+         "count < 10; ++r, ++count) {\n      greedy<10>(ty, ax, a);\n      ++n_;\n    }\n"
+         "    st_[4] = clock64();\n", "replace"),
+        ("      s_nb[u] = nb;\n",
+         "      for (int k_ = 0; k_ < 5; ++k_) stamps[(size_t)(s0 + u) * 8 + k_] = st_[k_];\n"
+         "      stamps[(size_t)(s0 + u) * 8 + 7] = n_;\n", "after"),
+        ("  if (!valid) return;\n", "  st_[5] = clock64();\n", "before"),
+        ("    g_sel_out[s] = g_sel;\n  }\n",
+         "  __threadfence_block();\n  st_[6] = clock64();\n  if (k == 0) {\n"
+         "    stamps[(size_t)s * 8 + 5] = st_[5];\n    stamps[(size_t)s * 8 + 6] = st_[6];\n  }\n", "after")],
+        ("load, projection", "shape 3", "shape 2", "shape 1",
+         "set B, barrier, shapes 1 and 0 normalised, search", "stores")),
+}
+PVQ_GREEDY = {"previous": (1, 4), "current": (1, 4)}  # the stamps around shapes 3, 2 and 1
+
+# The bit model. Every thread stores its start, its end of staging, its end
+# and (the current kernel with emit_pack) the cycles from the block's wait
+# for the transposed operand rows to its end of storing them:
+# stamps[(block * 256 + thread) * 4 + k].
+BM_THREADS = 256
+BM_SPECS = {
+    "previous": [
+        ("int ne4, int rate_flag) {\n  __shared__",
+         "int ne4, int rate_flag, long long* __restrict__ stamps) {\n  __shared__", "replace"),
+        ("  const bool emit = pk != nullptr;  // uniform over the launch\n",
+         "  const long long t0_ = clock64();\n", "after"),
+        ("  __syncthreads();\n  const long tid",
+         "  __syncthreads();\n  const long long t1_ = clock64();\n"
+         "  long long* sp_ = stamps + ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;\n"
+         "  sp_[0] = t0_;\n  sp_[1] = t1_;\n  sp_[2] = t1_;\n  const long tid", "replace"),
+        ("    }\n    return;\n  }\n", "    }\n    sp_[2] = clock64();\n    return;\n  }\n", "replace"),
+        ("    pk[((long)4 * NT + n) * S + s] = s_cum[f] + 1024 * s_freq[f];\n  }\n",
+         "  sp_[2] = clock64();\n", "after"),
+        ("int rate_flag, void* stream) {", "int rate_flag, void* stream, long long* stamps) {", "replace"),
+        ("ne4, rate_flag);", "ne4, rate_flag, stamps);", "replace")],
+    "current": [
+        ("int S, int NT, int ne4) {\n  __shared__",
+         "int S, int NT, int ne4, long long* __restrict__ stamps) {\n  __shared__", "replace"),
+        ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n",
+         "  const long long t0_ = clock64();\n  long long rows_ = 0;\n", "after"),
+        ("  if (tid < kS) s_lim[tid] = s0 + tid < S ? (lastnz[s0 + tid] + 1) >> 1 : 0;\n  __syncthreads();\n",
+         "  const long long t1_ = clock64();\n", "after"),
+        ("  if (kEmit) {\n    __syncthreads();\n",
+         "  if (kEmit) {\n    const long long r0_ = clock64();\n    __syncthreads();\n", "replace"),
+        ("s_rows[k * (kS + 1) + lane];\n    }\n  }\n}\n",
+         "s_rows[k * (kS + 1) + lane];\n    }\n    rows_ = clock64() - r0_;\n  }\n"
+         "  long long* sp_ = stamps + ((size_t)(blockIdx.y * gridDim.x + blockIdx.x) * kThreads + tid) * 4;\n"
+         "  sp_[0] = t0_;\n  sp_[1] = t1_;\n  sp_[2] = clock64();\n  sp_[3] = rows_;\n}\n", "replace"),
+        ("int ne4,\n                             void* stream) {",
+         "int ne4,\n                             void* stream, long long* stamps) {", "replace"),
+        ("pk, S, NT, ne4);", "pk, S, NT, ne4, stamps);", "replace_all")],
+}
+BM_PHASES = ("stage", "tuples", "operand rows")
+
+
 def instrument(text: str, edits, entry: str) -> str:
     """Apply the edits (each anchor must occur once) and rename the C entry
     `entry` to `entry`_phase."""
     for anchor, add, where in edits:
-        if text.count(anchor) != 1:
+        if text.count(anchor) != 1 and not (where == "replace_all" and anchor in text):
             raise ValueError(f"anchor not found once: {anchor!r}")
         if where == "after":
             new = anchor + add
@@ -226,7 +343,7 @@ def instrument(text: str, edits, entry: str) -> str:
         elif where == "after_line":  # after the anchor's first line
             first, rest = anchor.split("\n", 1)
             new = first + "\n" + add + rest
-        else:  # replace
+        else:  # replace, replace_all
             new = add
         text = text.replace(anchor, new)
     old = f'extern "C" int {entry}('
@@ -396,12 +513,235 @@ def tns_main(src: Path) -> int:
     return 0
 
 
+def build_one(nvcc: str, src: Path, kern: str, edits, tag: str, argtypes) -> "ctypes.CDLL":
+    """The instrumented `kern`.cu of directory `src`, built with the port's
+    nvcc flags in a temporary directory; its entry is lc3t_<kern>_phase."""
+    from lc3jax_torch import _build
+
+    tmp = Path(tempfile.mkdtemp())
+    f = tmp / f"{tag}_{kern}.cu"
+    f.write_text(instrument((src / f"{kern}.cu").read_text(), edits, f"lc3t_{kern}"))
+    so = tmp / f"lib{tag}_{kern}.so"
+    r = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I", str(src), "-shared", "-o", str(so), str(f)],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"kernel_phases: nvcc failed on the {tag} {kern}:\n{r.stderr}")
+    L = ctypes.CDLL(str(so))
+    getattr(L, f"lc3t_{kern}_phase").argtypes = argtypes
+    return L
+
+
+def ptxas_lines(nvcc: str, path: Path) -> list:
+    """`-Xptxas -v`'s registers, spills and stack frame of each kernel in path."""
+    from lc3jax_torch import _build
+
+    r = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", "/dev/null", str(path)],
+                       capture_output=True, text=True)
+    return [ln.split(":", 1)[-1].strip() for ln in r.stderr.splitlines()
+            if "registers" in ln or "stack frame" in ln or "Compiling entry" in ln]
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+PVQ_ARGTYPES = [_P] * 8 + [_I] + [_P, _P]
+
+
+def build_pvq(nvcc: str, src: Path, version: str):
+    return build_one(nvcc, src, "sns_pvq", PVQ_SPECS[version][0], version, PVQ_ARGTYPES)
+
+
+def run_pvq(L, version: str, t2rot) -> "np.ndarray":
+    """One launch of the instrumented sns_pvq of `version` on t2rot [S, 16];
+    checks every output equal to the plain version and returns the stamps
+    [S, phases + 2] (the greedy rounds last)."""
+    import torch
+
+    from lc3jax_torch.dsp import sns_kernel
+
+    S = t2rot.shape[0]
+    x = t2rot.contiguous()
+    i32 = torch.int32
+    outs = [x.new_empty((S, 16), dtype=i32), x.new_empty((S, 16), dtype=i32), x.new_empty((S, 16)),
+            x.new_empty((S,), dtype=i32), x.new_empty((S,), dtype=i32), x.new_empty((S,))]
+    stamps = torch.zeros(S, len(PVQ_SPECS[version][1]) + 2, dtype=torch.int64, device=x.device)
+    gains = torch.as_tensor(sns_kernel.GAINS, device=x.device)
+    err = L.lc3t_sns_pvq_phase(x.data_ptr(), *[o.data_ptr() for o in outs], gains.data_ptr(), S,
+                               torch.cuda.current_stream().cuda_stream, stamps.data_ptr())
+    if err:
+        raise RuntimeError(f"{version} sns_pvq_phase: CUDA error {err}")
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(outs, sns_kernel.sns_pvq_plain(x))):
+        if not torch.equal(a, b):
+            raise AssertionError(f"instrumented {version} sns_pvq != plain (output {i})")
+    return stamps.cpu().numpy()
+
+
+def pvq_alone(L, version: str, t2rot, streams=range(4)) -> tuple[list, list]:
+    """(cycles a greedy round, cycles of the whole kernel) with each of
+    `streams` of t2rot alone on the card (S = 1)."""
+    rounds, total = [], []
+    n = len(PVQ_SPECS[version][1])
+    for s in streams:
+        st = run_pvq(L, version, t2rot[s : s + 1])[0]
+        a, b = PVQ_GREEDY[version]
+        rounds.append(float(st[b] - st[a]) / max(int(st[-1]), 1))
+        total.append(float(st[n] - st[0]))
+    return rounds, total
+
+
+def pvq_alone_cycles(t2rot) -> tuple[list, int]:
+    """For the current sns_pvq: the cycles a greedy round takes with each of
+    the first four streams of t2rot alone (S = 1), and the most greedy
+    rounds a stream of the whole batch t2rot needs."""
+    from lc3jax_torch import _build
+
+    L = build_pvq(_build.find_nvcc(), _build.CSRC, "current")
+    return pvq_alone(L, "current", t2rot)[0], int(run_pvq(L, "current", t2rot)[:, -1].max())
+
+
+def summarize(st: np.ndarray, names) -> dict:
+    """Median and max over streams of each phase's cycles, the total and the
+    count stored last."""
+    n = len(names) + 1
+    d = np.diff(st[:, :n].astype(np.int64), axis=1)
+    out = {k: [float(np.median(d[:, i])), int(d[:, i].max())] for i, k in enumerate(names)}
+    tot = st[:, n - 1] - st[:, 0]
+    out["total"] = [float(np.median(tot)), int(tot.max())]
+    out["count"] = [float(np.median(st[:, n])), int(st[:, n].max())]
+    return out
+
+
+def sns_main(src: Path) -> int:
+    import torch
+
+    import chip_smoke as cs
+    from lc3jax_torch import _build
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.serving import BatchEncoder
+
+    card = cs.card_line()
+    print(card, flush=True)
+    nvcc = _build.find_nvcc()
+    dirs = {"previous": src, "current": _build.CSRC}
+    result = {"card": card, "ptxas": {}, "phases": {}, "alone": {}}
+    libs = {}
+    for version, d in dirs.items():
+        result["ptxas"][version] = ptxas_lines(nvcc, d / "sns_pvq.cu")
+        print(f"ptxas {version} sns_pvq: {result['ptxas'][version]}", flush=True)
+        libs[version] = build_pvq(nvcc, d, version)
+    dev = torch.device("cuda")
+    cfg = Lc3Config.new(48000, FrameDuration.MS10)
+    bench = np.load(ROOT / "tests" / "goldens" / "torch_bench_content.npz")
+    tile = np.arange(S) % 4
+    t2 = cs.capture_kernel_inputs(BatchEncoder(cfg, S, 150, device="cuda"),
+                                  torch.as_tensor(bench["pcm_in"][tile, 0], device=dev))["sns_pvq"][0]
+    for version, L in libs.items():
+        names = PVQ_SPECS[version][1]
+        result["phases"][version] = summarize(run_pvq(L, version, t2), names)
+        rounds, total = pvq_alone(L, version, t2)
+        result["alone"][version] = {"cycles a round": rounds, "cycles in all": total}
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True).stdout.strip()
+    result["sm_clock"] = clocks
+    for key, phases in result["phases"].items():
+        print(f"{key} sns_pvq, S={S}, cycles a stream, median (max): "
+              + "; ".join(f"{k} {v[0]:.0f} ({v[1]})" for k, v in phases.items()))
+    for key, a in result["alone"].items():
+        print(f"{key} sns_pvq, the bench's four streams alone: cycles a greedy round "
+              + ", ".join(f"{c:.1f}" for c in a["cycles a round"]) + "; cycles in all "
+              + ", ".join(f"{c:.0f}" for c in a["cycles in all"]))
+    print(f"SM clock after the runs: {clocks}")
+    print(json.dumps(result))
+    return 0
+
+
+def run_bitmodel(L, version: str, args, emit: bool) -> "np.ndarray":
+    """One launch of the instrumented bit model of `version` on the wrapper's
+    arguments (c, g, sym, rate_flag, ne, lastnz); checks its outputs equal to
+    the plain version and returns each launched block's phase cycles
+    [blocks, 3] (BM_PHASES)."""
+    import torch
+
+    from lc3jax_torch.dsp import bitmodel_kernel as B
+
+    c, g, sym, rf, ne, lnz = args
+    S, NT = c.shape
+    out = c.new_empty((S, NT))
+    pk = c.new_empty((5 * NT, S)) if emit else None
+    nthreads = (-(-S * NT // BM_THREADS) + -(-S // 32) * -(-NT // 32)) * BM_THREADS
+    stamps = torch.zeros(nthreads, 4, dtype=torch.int64, device=c.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [t.data_ptr() for t in (c, g, sym, lnz)]
+    if version == "previous":
+        tabs = [t.data_ptr() for t in (*B.tables(c.device), *B.coder_tables(c.device))]
+        err = L.lc3t_bitmodel_phase(*ptrs, *tabs, out.data_ptr(), pk.data_ptr() if emit else None,
+                                    S, NT, ne // 4, rf, stream, stamps.data_ptr())
+    else:
+        err = L.lc3t_bitmodel_phase(*ptrs, B.composed_tables(c.device, rf).data_ptr(), out.data_ptr(),
+                                    pk.data_ptr() if emit else None, S, NT, ne // 4, stream,
+                                    stamps.data_ptr())
+    if err:
+        raise RuntimeError(f"{version} bitmodel_phase: CUDA error {err}")
+    torch.cuda.synchronize()
+    want = B.bitmodel_table_part_plain(*args, emit_pack=emit)
+    for i, (a, b) in enumerate(zip((out, pk) if emit else (out,), want if emit else (want,))):
+        if not torch.equal(a, b):
+            raise AssertionError(f"instrumented {version} bitmodel (emit_pack={emit}) != plain ({i})")
+    st = stamps.cpu().numpy().reshape(-1, BM_THREADS, 4)
+    st = st[(st[:, :, 0] != 0).any(1)]  # the launched blocks
+    t0 = np.where(st[:, :, 0] != 0, st[:, :, 0], np.iinfo(np.int64).max).min(1)
+    t1, t2, rows = st[:, :, 1].max(1), st[:, :, 2].max(1), st[:, :, 3].max(1)
+    return np.stack([t1 - t0, t2 - t1 - rows, rows], 1)
+
+
+def bitmodel_main(src: Path) -> int:
+    import torch
+
+    import chip_smoke as cs
+    from lc3jax_torch import _build
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.serving import BatchEncoder
+
+    card = cs.card_line()
+    print(card, flush=True)
+    nvcc = _build.find_nvcc()
+    argtypes = {"previous": [_P] * 10 + [_I] * 4 + [_P, _P], "current": [_P] * 7 + [_I] * 3 + [_P, _P]}
+    dirs = {"previous": src, "current": _build.CSRC}
+    result = {"card": card, "ptxas": {}, "phases": {}}
+    libs = {}
+    for version, d in dirs.items():
+        result["ptxas"][version] = ptxas_lines(nvcc, d / "bitmodel.cu")
+        print(f"ptxas {version} bitmodel: {result['ptxas'][version]}", flush=True)
+        libs[version] = build_one(nvcc, d, "bitmodel", BM_SPECS[version], version, argtypes[version])
+    dev = torch.device("cuda")
+    cfg = Lc3Config.new(48000, FrameDuration.MS10)
+    bench = np.load(ROOT / "tests" / "goldens" / "torch_bench_content.npz")
+    tile = np.arange(S) % 4
+    args = cs.capture_kernel_inputs(BatchEncoder(cfg, S, 150, device="cuda"),
+                                    torch.as_tensor(bench["pcm_in"][tile, 0], device=dev))["bitmodel_table_part"]
+    for version, L in libs.items():
+        for emit in (False, True):
+            ph = run_bitmodel(L, version, args, emit)
+            key = f"{version}{' emit_pack' if emit else ''}"
+            result["phases"][key] = {k: [float(np.median(ph[:, i])), int(ph[:, i].max())]
+                                     for i, k in enumerate(BM_PHASES)}
+            tot = ph.sum(1)
+            result["phases"][key]["total"] = [float(np.median(tot)), int(tot.max())]
+            result["phases"][key]["blocks"] = int(ph.shape[0])
+    for key, phases in result["phases"].items():
+        print(f"{key} bitmodel, S={S}, cycles a block, median (max): "
+              + "; ".join(f"{k} {v[0]:.0f} ({v[1]})" if isinstance(v, list) else f"{k} {v}"
+                          for k, v in phases.items()))
+    print(json.dumps(result))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", type=Path, required=True,
                     help="directory with the previous kernels' sources")
-    ap.add_argument("--kernels", choices=("range", "tns"), default="range",
-                    help="the range coders (parse, pack) or the TNS lattices")
+    ap.add_argument("--kernels", choices=("range", "tns", "sns", "bitmodel"), default="range",
+                    help="the range coders (parse, pack), the TNS lattices, the SNS PVQ "
+                         "search or the bit model")
     args = ap.parse_args()
 
     import torch
@@ -411,6 +751,10 @@ def main() -> int:
         return 1
     if args.kernels == "tns":
         return tns_main(args.src)
+    if args.kernels == "sns":
+        return sns_main(args.src)
+    if args.kernels == "bitmodel":
+        return bitmodel_main(args.src)
     import chip_smoke as cs
     from lc3jax_torch import _build
     from lc3jax_torch import tables as T
