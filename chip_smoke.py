@@ -67,6 +67,28 @@ stated:
    streams and the per-frame rate plan of tests/goldens/torch_config_parity.npz
    (tools/gen_torch_config_parity.py) at S = 1: BatchDecoder within 1 LSB of
    the oracle's PCM, both BatchEncoder modes byte-exact to its frames;
+8d. serving: the parse kernel against the C++ host parser
+   (coding/host_parse.py) on 2,048 frames at the six corpus geometries and
+   8 kHz / 7.5 ms / 30 B, by stream mod 3 encoded, random and encoded with
+   3 bytes overwritten (bad_frame equal on every frame, every field on the
+   good ones); then on the bench content's T frames (phase 5's corrupt one
+   included), each path with every launch counter zeroed just before it
+   and read just after: BatchDecoder(device_parse=False).decode equal to
+   phase 5's PCM (parse 0, TNS synthesis T, LTPF T launches);
+   decode_stream host-parse sequential and pipelined equal to it, with
+   plc_frames as in phase 5, and a source that fails after two batches
+   raising in the caller; device-parse decode_stream with fetch=True,
+   fetch=False (CUDA tensors) and chunk_frames=5 (5 + 5 + 2) equal to
+   phase 5 (parse T); a decoder and an encoder (both modes) checkpointed
+   after 6 frames, loaded onto the card into a fresh state, and the next 6
+   frames equal to the live run (decoder) or to the oracle's bytes
+   (encoder); the CLI on a 4-channel WAV: encode equal to the oracle's
+   frames, compare 0, decode within 1 LSB, inspect one line a frame. Then
+   times: the host-parse step split into the C++ parse (host wall), the
+   copy from the pinned ring and the decode step (CUDA events), and
+   decode_stream over 48 batches, host-parse sequential against pipelined
+   and device-parse fetch=True against fetch=False and chunk_frames=12,
+   alternated rep by rep;
 9. times: CUDA events after warm-up, median of 20: the fused decode step,
    each kernel, its plain version and the library call where one exists;
    beside each kernel's (and the library call's) per-call event time, its
@@ -114,6 +136,7 @@ NBYTES = 150
 T_FRAMES = 12
 REPS = 20
 PAIR_REPS = 200  # the autocorrelation against torch.bmm, a few µs apart
+STREAM_REPS = 5  # decode_stream runs of 48 batches per mode, alternated
 CORPUS = ["48000_10ms_120", "48000_10ms_20", "48000_10ms_400", "44100_7.5ms_100",
           "16000_10ms_60", "8000_10ms_40"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
@@ -573,6 +596,313 @@ def equal_outputs(name: str, a, b) -> None:
             raise AssertionError(f"{name} kernel != plain (output {i}), streams {bad}")
 
 
+# the launch counters: name -> (module path, attribute); the serving phase
+# zeroes them just before each path it drives and reads them just after
+COUNTERS = {
+    "parse": ("lc3jax_torch.coding.parse_kernel", "launches"),
+    "tns_synthesis": ("lc3jax_torch.dsp.tns_kernel", "launches"),
+    "ltpf": ("lc3jax_torch.dsp.ltpf_kernel", "launches"),
+    "sns_pvq": ("lc3jax_torch.dsp.sns_kernel", "launches"),
+    "tns_autocorr": ("lc3jax_torch.dsp.tns_enc_kernel", "autocorr_launches"),
+    "tns_analysis": ("lc3jax_torch.dsp.tns_enc_kernel", "analysis_launches"),
+    "bitmodel_table_part": ("lc3jax_torch.dsp.bitmodel_kernel", "launches"),
+    "pack": ("lc3jax_torch.coding.pack_kernel", "launches"),
+}
+
+
+def counted(label: str, expect: dict, fn):
+    """Run fn with every launch counter zeroed just before and read just
+    after; fail unless each kernel launched as often as `expect` says (0
+    where it does not name it). Returns (fn's result, the counts)."""
+    import importlib
+
+    mods = {k: (importlib.import_module(m), a) for k, (m, a) in COUNTERS.items()}
+    for m, a in mods.values():
+        setattr(m, a, 0)
+    out = fn()
+    got = {k: getattr(m, a) for k, (m, a) in mods.items()}
+    want = {k: expect.get(k, 0) for k in COUNTERS}
+    if got != want:
+        raise AssertionError(f"{label}: launch counts {got} != {want}")
+    return out, {k: v for k, v in got.items() if v}
+
+
+def fuzz_batch(enc: np.ndarray, S: int, seed: int) -> np.ndarray:
+    """uint8 [S, nbytes] by stream mod 3: the encoded frames cycled, random
+    bytes, and the encoded frames with 3 random bytes each overwritten."""
+    rng = np.random.default_rng(seed)
+    nb = enc.shape[1]
+    out = enc[np.arange(S) % len(enc)].copy()
+    k = np.arange(S) % 3
+    out[k == 1] = rng.integers(0, 256, ((k == 1).sum(), nb), dtype=np.uint8)
+    for i in np.flatnonzero(k == 2):
+        out[i, rng.integers(0, nb, 3)] = rng.integers(0, 256, 3)
+    return out
+
+
+def serving_phase(card: str, cfg, bench, corpus, cp, pcm5: np.ndarray) -> None:
+    """Phase 8d: the parser fuzz on the card, then the host-parse decode,
+    decode_stream in each mode, checkpoints and the CLI at S = 2048 on the
+    bench content (phase 5's frames, the corrupt one included), each path
+    with its launch counts; then their times."""
+    import contextlib
+    import io
+    import tempfile
+    import threading
+
+    import torch
+
+    from lc3jax_torch import serving
+    from lc3jax_torch.checkpoint import load_state, save_state
+    from lc3jax_torch.coding import parse_kernel
+    from lc3jax_torch.coding.host_parse import HostParser
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.dsp.decoder import decode_step, decoder_init
+    from lc3jax_torch.dsp.encoder import encoder_init
+    from lc3jax_torch.runner import cli
+    from lc3jax_torch.runner.wav import read_wav, write_wav
+    from lc3jax_torch.serving import BatchDecoder, BatchEncoder
+
+    dev = torch.device("cuda")
+    S, T = S_MAIN, T_FRAMES
+    tile = np.arange(S) % 4
+    frames = bench["frames"]  # [4, T, nbytes], frame 5 of content 2 corrupt
+    want = bench["pcm_out"][:, :T]
+    encoded = bench["encoded"][:, :T]
+    batches = [np.ascontiguousarray(frames[tile, f]) for f in range(T)]
+    dec_counts = {"tns_synthesis": T, "ltpf": T}
+    fused_counts = dict(dec_counts, parse=T)
+    stacked = lambda outs: np.stack(outs, 1)  # T x [S, nf] -> [S, T, nf]
+
+    # ---- the parse kernel against the C++ host parser: encoded frames mixed
+    # with random bytes and with overwritten bytes, the six corpus geometries
+    # and 8 kHz / 7.5 ms / 30 B (the comparison's launches are not counted)
+    lines = []
+    sources = [(k, corpus[k + "_payloads"]) for k in CORPUS]
+    sources.append(("8000_7.5ms_30", cp["8000_7.5ms_30_payloads"]))
+    for i, (key, enc) in enumerate(sources):
+        fs, ms, nb = key.split("_")
+        c = Lc3Config.new(int(fs), FrameDuration.MS7P5 if ms == "7.5ms" else FrameDuration.MS10)
+        pl = fuzz_batch(enc, S, seed=40 + i)
+        host = HostParser(c).parse(pl)
+        got = parse_kernel.parse_frames_cuda(c, int(nb), torch.as_tensor(pl, device=dev))
+        bad = host["bad_frame"]
+        if not np.array_equal(got.bad_frame.cpu().numpy(), bad):
+            raise AssertionError(f"fuzz {key}: bad_frame differs between the kernel and the "
+                                 "C++ parser")
+        for name, a in host.items():
+            b = getattr(got, name).cpu().numpy()
+            if b.dtype != a.dtype or not np.array_equal(b[~bad], a[~bad]):
+                rows = np.flatnonzero((b != a).reshape(S, -1).any(1) & ~bad)[:8].tolist()
+                raise AssertionError(f"fuzz {key}: field {name} differs on good frames {rows}")
+        # the untouched encoded rows are bad only where the encoded frame is
+        # (the 20 B corpus has one the reference parsers reject too)
+        own = HostParser(c).parse(enc)["bad_frame"][np.arange(0, S, 3) % len(enc)]
+        if not np.array_equal(bad[0::3], own) or bad.all() or not bad.any():
+            raise AssertionError(f"fuzz {key}: unexpected bad-frame pattern ({int(bad.sum())} bad)")
+        lines.append(f"{key}: {int(bad.sum())}/{S} bad")
+    log("serving", "parse kernel = C++ host parser on every field of the good frames and on "
+                   "bad_frame: " + "; ".join(lines))
+
+    # ---- host-parse decode
+    hp = BatchDecoder(cfg, S, NBYTES, device="cuda", device_parse=False)
+    host_pcm, n = counted("host-parse decode", dec_counts,
+                          lambda: stacked([hp.decode(b) for b in batches]))
+    if not np.array_equal(host_pcm, pcm5):
+        raise AssertionError("host-parse decode != phase 5's fused decode")
+    if hp.metrics.plc_frames != S // 4:
+        raise AssertionError(f"host-parse plc_frames {hp.metrics.plc_frames} != {S // 4}")
+    lines = [f"host-parse decode = fused decode, launches {n}, "
+             + check_envelope("contents 0-3", host_pcm[:4], want)]
+
+    # ---- decode_stream, host parse: sequential and pipelined
+    outs = {}
+    for pipe in (False, True):
+        d = BatchDecoder(cfg, S, NBYTES, device="cuda", device_parse=False)
+        got, n = counted(f"decode_stream host-parse pipeline={pipe}", dec_counts,
+                         lambda: d.decode_stream(iter(batches), pipeline=pipe))
+        if not np.array_equal(stacked(got), host_pcm) or d.metrics.plc_frames != S // 4:
+            raise AssertionError(f"decode_stream host-parse pipeline={pipe}: PCM or plc_frames "
+                                 f"({d.metrics.plc_frames}) differ")
+        outs[pipe] = n
+    lines.append(f"decode_stream host-parse sequential = pipelined = decode, launches "
+                 f"{outs[True]}, plc_frames {S // 4}")
+
+    def failing():
+        yield batches[0]
+        yield batches[1]
+        raise RuntimeError("the source failed after two batches")
+
+    caught = []
+
+    def run_failing():
+        try:
+            BatchDecoder(cfg, S, NBYTES, device="cuda", device_parse=False).decode_stream(
+                failing(), pipeline=True)
+        except RuntimeError as e:
+            caught.append(e)
+
+    th = threading.Thread(target=run_failing, daemon=True)
+    th.start()
+    th.join(120)
+    if th.is_alive() or not caught or "after two batches" not in str(caught[0]):
+        raise AssertionError(f"decode_stream pipelined: a failing source gave {caught} "
+                             f"(thread alive: {th.is_alive()})")
+    lines.append("a source failing after two batches raises in the caller")
+
+    # ---- decode_stream, device parse: fetch=True, fetch=False, chunk_frames=5
+    d = BatchDecoder(cfg, S, NBYTES, device="cuda")
+    got, n = counted("decode_stream fetch=True", fused_counts,
+                     lambda: d.decode_stream(iter(batches)))
+    if not np.array_equal(stacked(got), pcm5) or d.metrics.plc_frames != S // 4:
+        raise AssertionError(f"decode_stream fetch=True: PCM or plc_frames "
+                             f"({d.metrics.plc_frames}) differ from phase 5")
+    d = BatchDecoder(cfg, S, NBYTES, device="cuda")
+    got, _ = counted("decode_stream fetch=False", fused_counts,
+                     lambda: d.decode_stream(iter(batches), fetch=False))
+    if not all(t.is_cuda for t in got) or not np.array_equal(
+            stacked([t.cpu().numpy() for t in got]), pcm5):
+        raise AssertionError("decode_stream fetch=False: not CUDA tensors equal to phase 5")
+    chunks, real = [], serving.decode_bytes_frames
+
+    def spy(c, nb, st, x):
+        chunks.append(x.shape[0])
+        return real(c, nb, st, x)
+
+    serving.decode_bytes_frames = spy
+    try:
+        d = BatchDecoder(cfg, S, NBYTES, device="cuda")
+        got, _ = counted("decode_stream chunk_frames=5", fused_counts,
+                         lambda: d.decode_stream(iter(batches), chunk_frames=5))
+    finally:
+        serving.decode_bytes_frames = real
+    if chunks != [5, 5] or not np.array_equal(stacked(got), pcm5):
+        raise AssertionError(f"decode_stream chunk_frames=5: chunks {chunks}, or PCM differs")
+    lines.append(f"decode_stream device-parse fetch=True (plc_frames {S // 4}), fetch=False "
+                 f"(CUDA tensors) and chunk_frames=5 (chunks 5 + 5, then 2 batches alone) = "
+                 f"phase 5, launches {n} each")
+
+    # ---- checkpoints: 6 frames, save, load onto the card, the next 6
+    scratch = ROOT / "build"
+    scratch.mkdir(parents=True, exist_ok=True)
+    tag = f"48000/MS10/S={S}/nbytes={NBYTES}"
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        path = str(Path(tmp) / "decoder.npz")
+        d = BatchDecoder(cfg, S, NBYTES, device="cuda")
+        for b in batches[:6]:
+            d.decode(b)
+        save_state(path, d.state, config_tag=tag)
+        r = BatchDecoder(cfg, S, NBYTES, device="cuda")
+        r.state = load_state(path, decoder_init(cfg, S, "cuda"), config_tag=tag)
+        if not (r.state.mem_ola.is_cuda and r.state.ltpf.hist_y.is_cuda):
+            raise AssertionError("checkpoint: the decoder state did not load onto the card")
+        if not np.array_equal(stacked([r.decode(b) for b in batches[6:]]), pcm5[:, 6:]):
+            raise AssertionError("checkpoint: the resumed decoder differs from the live run")
+        for fused in (False, True):
+            pcm_b = [np.ascontiguousarray(bench["pcm_in"][tile, f]) for f in range(T)]
+            e = BatchEncoder(cfg, S, NBYTES, device="cuda", device_pack=fused)
+            first = [e.encode(x) for x in pcm_b[:6]]
+            path = str(Path(tmp) / f"encoder_{fused}.npz")
+            save_state(path, e.state, config_tag=tag)
+            r = BatchEncoder(cfg, S, NBYTES, device="cuda", device_pack=fused)
+            r.state = load_state(path, encoder_init(cfg, S, "cuda"), config_tag=tag)
+            got = stacked(first + [r.encode(x) for x in pcm_b[6:]])
+            if not np.array_equal(got, encoded[tile]):
+                bad = np.flatnonzero((got != encoded[tile]).any(2).any(0)).tolist()
+                raise AssertionError(f"checkpoint: encoder (device_pack={fused}) frames {bad} "
+                                     "differ from the oracle's")
+    lines.append("checkpoints: the decoder resumed on the card = the live run; the encoder "
+                 "resumed in both modes, every frame byte-exact to the oracle's")
+
+    # ---- the CLI on a 4-channel WAV of the bench content's 12 frames
+    nf = cfg.nf
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        f = {k: str(Path(tmp) / k) for k in ("in.wav", "out.lc3", "oracle.lc3", "frames.lc3",
+                                              "out.wav", "mono.lc3")}
+        write_wav(f["in.wav"], bench["pcm_in"][:, :T].transpose(1, 2, 0).reshape(T * nf, 4),
+                  cfg.fs)
+        Path(f["oracle.lc3"]).write_bytes(encoded.transpose(1, 0, 2).tobytes())
+        Path(f["frames.lc3"]).write_bytes(frames[:, :T].transpose(1, 0, 2).tobytes())
+        Path(f["mono.lc3"]).write_bytes(frames[2, :T].tobytes())
+        enc_counts = {"sns_pvq": T, "tns_autocorr": T, "tns_analysis": T,
+                      "bitmodel_table_part": 2 * T}
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc, n_enc = counted("cli encode", enc_counts, lambda: cli.main(
+                ["encode", f["in.wav"], f["out.lc3"], "--nbytes", str(NBYTES)]))
+            if rc != 0 or Path(f["out.lc3"]).read_bytes() != Path(f["oracle.lc3"]).read_bytes():
+                raise AssertionError("cli encode: the file differs from the oracle's frames")
+            if cli.main(["compare", f["out.lc3"], f["oracle.lc3"]]) != 0:
+                raise AssertionError("cli compare: not identical")
+            rc, n_dec = counted("cli decode", dec_counts, lambda: cli.main(
+                ["decode", f["frames.lc3"], f["out.wav"], "--rate", str(cfg.fs), "--channels",
+                 "4", "--nbytes", str(NBYTES)]))
+            mark = text.tell()
+            cli.main(["inspect", f["mono.lc3"], "--nbytes", str(NBYTES)])
+        inspected = text.getvalue()[mark:].splitlines()
+        out, rate = read_wav(f["out.wav"])
+        if rc != 0 or rate != cfg.fs or out.shape != (T * nf, 4):
+            raise AssertionError(f"cli decode: rc {rc}, {rate} Hz, shape {out.shape}")
+        env = check_envelope("cli decode", out.reshape(T, nf, 4).transpose(2, 0, 1), want)
+        if len(inspected) != T or not all(l.startswith(f"frame {i}: ")
+                                          for i, l in enumerate(inspected)):
+            raise AssertionError(f"cli inspect: {inspected}")
+    lines.append(f"cli: encode = the oracle's frames (launches {n_enc}), compare 0, {env} "
+                 f"(launches {n_dec}), inspect {len(inspected)} lines "
+                 f"({sum('CORRUPT' in l for l in inspected)} CORRUPT)")
+    log("serving", "; ".join(lines))
+
+    # ---- times: the host-parse step split; decode_stream modes over 48 batches
+    parser = HostParser(cfg, dev)
+    st = decoder_init(cfg, S, "cuda")
+    split = {k: [] for k in ("parse_wall", "copy_event", "decode_event", "step_wall")}
+    for r in range(3 + REPS):
+        b = batches[r % T]
+        ea, eb, ec = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        w0 = time.perf_counter()
+        parser.parse(b)
+        w1 = time.perf_counter()
+        ea.record()
+        fr = parser.upload()
+        eb.record()
+        st, pcm = decode_step(cfg, NBYTES * 8, st, fr)
+        ec.record()
+        ec.synchronize()
+        w2 = time.perf_counter()
+        if r >= 3:  # after warm-up
+            for k, v in (("parse_wall", (w1 - w0) * 1e3), ("copy_event", ea.elapsed_time(eb)),
+                         ("decode_event", eb.elapsed_time(ec)), ("step_wall", (w2 - w0) * 1e3)):
+                split[k].append(v)
+    many = [batches[f % T] for f in range(4 * T)]
+    audio = len(many) * S * cfg.nf / cfg.fs
+
+    def stream_times(modes: dict, reps: int = STREAM_REPS) -> dict:
+        """Host wall of decode_stream over the 48 batches per mode, the modes
+        alternated rep by rep after one warm-up each: ms and x realtime."""
+        decs = {k: BatchDecoder(cfg, S, NBYTES, device="cuda", device_parse=dp)
+                for k, (dp, _) in modes.items()}
+        walls = {k: [] for k in modes}
+        for r in range(reps + 1):
+            for k, (_, kw) in modes.items():
+                torch.cuda.synchronize()
+                w0 = time.perf_counter()
+                decs[k].decode_stream(iter(many), **kw)
+                if r:
+                    walls[k].append((time.perf_counter() - w0) * 1e3)
+        return walls
+
+    host_modes = stream_times({"sequential": (False, {}),
+                               "pipelined": (False, {"pipeline": True})})
+    dev_modes = stream_times({"fetch=True": (True, {}), "fetch=False": (True, {"fetch": False}),
+                              "chunk_frames=12": (True, {"chunk_frames": 12})})
+    rt = lambda ms: audio / (np.asarray(ms) / 1e3)
+    log("serving-times", f"{card}, S={S}, 48k/10ms/150B, median [min-max]: host-parse step "
+        f"({REPS} reps) " + ", ".join(f"{k} {spread(v)} ms" for k, v in split.items())
+        + f"; decode_stream over {len(many)} batches, {STREAM_REPS} reps alternated: " + "; ".join(
+            f"{k} {spread(v)} ms = {spread(list(rt(v)))} x realtime"
+            for k, v in {**host_modes, **dev_modes}.items()))
+
+
 def main() -> int:
     import torch
 
@@ -935,6 +1265,10 @@ def main() -> int:
         lines.append(f"{key}: decode max {max_lsb} LSB ({snr:.1f} dB), {len(plan)}/{len(plan)} "
                      f"frames equal in both encode modes")
     log("config-parity", "; ".join(lines))
+
+    # ---- 8d. serving: the parser fuzz, host-parse decode, decode_stream,
+    # checkpoints, the CLI, and their times
+    serving_phase(card, cfg, bench, corpus, cp, pcm)
 
     # ---- 9. times (CUDA events, median of REPS after warm-up)
     dec_ms = cuda_ms(lambda: dec.decode_tensor(pay))

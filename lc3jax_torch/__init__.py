@@ -2,7 +2,7 @@
 kernels.
 
 A port of the `lc3jax` package (JAX on a TPU) to PyTorch on an NVIDIA H100.
-Two paths run on the card:
+These paths run on the card:
 
 - decode, raw frame bytes -> PCM (`serving.BatchDecoder`, the fused mode of
   `lc3jax.serving.BatchDecoder(device_parse=True)`): the range decoder
@@ -22,6 +22,20 @@ Two paths run on the card:
 
 `dsp.streaming` loops any of the four steps over a leading frame axis.
 
+Around them, the stream and file entry points of `lc3jax`:
+
+- `serving.BatchDecoder(device_parse=False)`: the repo's C++ parser on the
+  host (`coding.host_parse`, bound beside the packer), the fields copied to
+  the card, then `dsp.decoder.decode_step` (TNS synthesis and LTPF
+  kernels); `lc3jax`'s default mode;
+- `BatchDecoder.decode_stream`: host parse sequential or pipelined (a
+  prefetch thread), device parse with the PCM fetched or left on the card,
+  and `chunk_frames=T` over `dsp.streaming.decode_bytes_frames`;
+- `checkpoint.save_state` / `load_state`: decoder and encoder state in
+  `lc3jax`'s `.npz` format, restored onto any device;
+- `runner.cli` (`python -m lc3jax_torch.runner.cli`): encode, decode,
+  compare and inspect `.lc3` files, with its own `runner.wav`.
+
 Every kernel has a plain PyTorch version beside it; a wrapper takes it only
 for a tensor on the CPU, and for a CUDA tensor launches the kernel or
 raises. Kernels are built with nvcc at first use (`_build.py`). The entry
@@ -30,8 +44,9 @@ points run on the card unless the caller passes `device="cpu"`.
 The package imports torch and never jax, nor anything of `lc3jax`: it keeps
 its own copies of the configuration (`config.py`), the spec tables
 (`tables.py`, `data/tables.npz`), the decoder constants (`dsp/params.py`),
-the f32 helpers (`fp.py`), glibc's exp2f table (`data/exp2f.npz`) and the
-serving counters (`metrics.py`).
+the f32 helpers (`fp.py`), glibc's exp2f table (`data/exp2f.npz`), the
+serving counters (`metrics.py`) and the WAV reader and writer
+(`runner/wav.py`).
 """
 
 from .config import FrameDuration, Lc3Config

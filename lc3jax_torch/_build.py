@@ -156,3 +156,13 @@ def launch(name: str, index: int, *args) -> None:
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
         check(err, name)
+
+
+def record_on_stream(event, device) -> None:
+    """Record `event` on the current stream of CUDA `device`: the stream on
+    which a copy to that device, queued just before, runs (the host
+    parser's ring waits on it, coding/host_parse.py). Like `launch`, the one
+    place outside the kernels that names a stream."""
+    import torch
+
+    event.record(torch.cuda.current_stream(device))

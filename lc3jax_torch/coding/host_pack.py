@@ -2,9 +2,10 @@
 bitstream codec (port of lc3jax/coding/native.py:pack_frames_native).
 
 `native/lc3_bitstream.cc` (the range encoder, the side-info and the tail
-bit writer, threaded over streams) is compiled at first use with the host
-C++ compiler into `build/lc3jax_torch/`, keyed by a hash of the source and
-the flags, and bound here through ctypes:
+bit writer, and the parser that `coding/host_parse.py` binds, threaded over
+streams) is compiled at first use with the host C++ compiler into
+`build/lc3jax_torch/`, keyed by a hash of the source and the flags, and
+bound here through ctypes (`SIGNATURES`, one library for both directions):
 
     c++ -O3 -fPIC -shared -std=c++17 -pthread -o liblc3bitstream_<hash>.so
         native/lc3_bitstream.cc
@@ -31,7 +32,24 @@ ROOT = Path(__file__).resolve().parent.parent.parent
 SOURCE = ROOT / "native" / "lc3_bitstream.cc"
 BUILD_DIR = ROOT / "build" / "lc3jax_torch"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-pthread")
-N_THREADS = 8  # the packer's worker threads over streams
+N_THREADS = 8  # the packer's and the parser's worker threads over streams
+
+_C16 = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
+_C32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_CU8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+_INT = ctypes.c_int
+# C signatures: name -> (argtypes, restype)
+SIGNATURES = {
+    "lc3_load_tables": ([_C16, _C16, _CU8, _C16, _C16, _C16, _C16, _C32], None),
+    # returns the frames rejected (zeroed)
+    "lc3_pack_frames": ([_INT] * 4 + [_C32, _INT] + [_C32] * 8
+                        + [_INT, _C32, _C32, _CU8, _CU8, _C32, _C32, _C32, _INT,
+                           _C32, _CU8, _C32, _C32, _CU8, _C32, _CU8], _INT),
+    # returns the bad frames (every output of their rows zeroed)
+    "lc3_parse_frames": ([_CU8] + [_INT] * 6
+                         + [_C32, _CU8, _C32, _C32, _C32, _C32, _C32, _C32, _CU8, _CU8,
+                            _C32, _C32, _C32, _C32, _C32, _C32, _CU8, _C32, _CU8], _INT),
+}
 
 _lib = None
 
@@ -62,22 +80,16 @@ def build() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The packer library with its tables loaded, built on first call."""
+    """The packer and parser library with its tables loaded, built on first
+    call. Bound with ctypes.CDLL, which releases the GIL for each call, so a
+    parse or pack on one thread overlaps Python on another."""
     global _lib
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
-    c16 = np.ctypeslib.ndpointer(np.int16, flags="C_CONTIGUOUS")
-    c32 = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-    cu8 = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-    lib.lc3_load_tables.argtypes = [c16, c16, cu8, c16, c16, c16, c16, c32]
-    lib.lc3_load_tables.restype = None
-    lib.lc3_pack_frames.restype = ctypes.c_int  # frames rejected (zeroed)
-    lib.lc3_pack_frames.argtypes = (
-        [ctypes.c_int] * 4 + [c32, ctypes.c_int] + [c32] * 8
-        + [ctypes.c_int, c32, c32, cu8, cu8, c32, c32, c32, ctypes.c_int,
-           c32, cu8, c32, c32, cu8, c32, cu8]
-    )
+    for name, (argtypes, restype) in SIGNATURES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = restype
     lib.lc3_load_tables(
         np.ascontiguousarray(T.AC_SPEC_FREQ, np.int16),
         np.ascontiguousarray(T.AC_SPEC_CUMFREQ, np.int16),

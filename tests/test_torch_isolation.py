@@ -28,6 +28,18 @@ frames = BatchEncoder(cfg, 2, 120, device="cpu").encode(g["pcm_in"][:2])
 assert frames.shape == (2, 120) and frames.dtype == np.uint8
 fused = BatchEncoder(cfg, 2, 120, device="cpu", device_pack=True).encode(g["pcm_in"][:2])
 assert np.array_equal(fused, frames)
+host = BatchDecoder(cfg, 2, 120, device="cpu", device_parse=False)
+assert np.array_equal(host.decode(g["payloads"][:2]), pcm)
+streamed = BatchDecoder(cfg, 2, 120, device="cpu", device_parse=False).decode_stream(
+    [g["payloads"][:2]], pipeline=True)
+assert np.array_equal(streamed[0], pcm)
+import tempfile, os
+from lc3jax_torch.checkpoint import load_state, save_state
+from lc3jax_torch.dsp.decoder import decoder_init
+with tempfile.TemporaryDirectory() as d:
+    save_state(os.path.join(d, "s.npz"), host.state)
+    back = load_state(os.path.join(d, "s.npz"), decoder_init(cfg, 2, "cpu"))
+assert np.array_equal(back.ltpf.hist_x.numpy(), host.state.ltpf.hist_x.numpy())
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] == "lc3jax" or m.split(".")[0].startswith("jax"))
 assert not loaded, loaded
@@ -36,8 +48,9 @@ print("ok")
 
 
 def test_package_decodes_without_importing_jax():
-    """A decode and an encode (host pack and fused) on the CPU load no lc3jax
-    and no jax module."""
+    """A decode (fused and host-parse), a pipelined decode_stream, an encode
+    (host pack and fused) and a checkpoint round trip on the CPU load no
+    lc3jax and no jax module."""
     res = subprocess.run([sys.executable, "-c", _CODEC_WITHOUT_JAX], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
@@ -63,8 +76,8 @@ def test_port_data_equals_jax_data():
     assert all(np.array_equal(a[k], b[k]) for k in a.files)
 
 
-@pytest.mark.parametrize("entry", ["BatchDecoder", "BatchEncoder", "BatchEncoder-device_pack",
-                                   "encoder_init", "decoder_init"])
+@pytest.mark.parametrize("entry", ["BatchDecoder", "BatchDecoder-host_parse", "BatchEncoder",
+                                   "BatchEncoder-device_pack", "encoder_init", "decoder_init"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Built without `device`, an entry point or state constructor asks for
     CUDA: where no card is present it raises rather than carrying on on the
@@ -76,6 +89,8 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
 
     make = {
         "BatchDecoder": lambda **kw: serving.BatchDecoder(cfg, 2, 40, **kw),
+        "BatchDecoder-host_parse": lambda **kw: serving.BatchDecoder(cfg, 2, 40, device_parse=False,
+                                                                     **kw),
         "BatchEncoder": lambda **kw: serving.BatchEncoder(cfg, 2, 40, **kw),
         "BatchEncoder-device_pack": lambda **kw: serving.BatchEncoder(cfg, 2, 40, device_pack=True,
                                                                       **kw),
