@@ -107,7 +107,26 @@ stated:
    whole encode with the host pack (host wall, thread CPU time) and the
    fused encode step (CUDA events, host wall) alternate over 20 reps, each
    given as median [min-max]; the C++ host packer alone on the fields of
-   the fused step's bench batch, as a comparison (no PyTorch call packs).
+   the fused step's bench batch, as a comparison (no PyTorch call packs);
+10. sharding: lc3jax_torch.parallel on the bench content (the four
+   contents cycled, the second half shifted by one) over T frames, at
+   meshes ["cuda:0"] and ["cuda:0", "cuda:0"]: the sharded fused decode
+   and decode_frames equal to phase 5's PCM, the sharded encode step and
+   encode_frames fields equal to the unsharded step's and, packed on the
+   host, to the oracle's frames, the sharded fused encode's bytes equal to
+   phase 7b's, every gathered state equal to the unsharded one, each path
+   with its launches counted per shard; then two processes on the one card
+   (this script with --shard-worker and torchrun's environment variables,
+   gloo on 127.0.0.1), each its 1,024
+   streams through the sharded fused decode and fused encode, the halves
+   equal to the one-process outputs (a worker that fails, hangs past 300 s
+   or exits non-zero fails the run); then lc3jax_torch.profiling's
+   device_step_ms of the fused decode, encode DSP and fused encode steps
+   beside tools/torch_profile.py's busy per step, device_loop_span_ms of
+   the pipelined host-parse decode_stream over 24 batches beside the same
+   loop's host wall with the profiler on and off and phase 8d's host wall,
+   and the sharded fused decode step's CUDA-event time at
+   both meshes beside decode_tensor, alternated, median of 20.
 
 Then the card's line, one JSON line with the kernels (each with its event
 and device times and its bound: the larger of its bytes over 3.35 TB/s
@@ -123,6 +142,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -300,32 +320,20 @@ def nbytes_of(*tensors) -> int:
 def device_ms(fn, kernel: str | None, reps: int = REPS) -> float:
     """Median device time in ms of one call of fn under torch.profiler: the
     summed durations of the kernels named `kernel` (every kernel when None)
-    that each call launches, the wrapper's host work not included."""
+    that each call launches, the wrapper's host work not included. A
+    session that lost launches is taken again (lc3jax_torch.profiling)."""
     import re
 
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from lc3jax_torch import profiling
 
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
     named = re.compile(rf"(?<![A-Za-z_]){kernel}" if kernel else ".")
-    for _ in range(3):  # a session that lost launches is taken again
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        evs = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                     if e.device_type == DeviceType.CUDA and named.search(e.name)
-                     and not e.name.startswith(("Memcpy", "Memset")))
-        if evs and len(evs) % reps == 0:
-            break
-        print(f"[profiler] {len(evs)} launches of {kernel or 'any kernel'} recorded in {reps} "
-              "calls; profiling again", flush=True)
-    if not evs or len(evs) % reps:
-        raise AssertionError(f"profiler: {len(evs)} launches of {kernel or 'any kernel'} "
-                             f"in {reps} calls")
+    pick = lambda spans: [(a, b) for a, b, name in spans if named.search(name)
+                          and not name.startswith(("Memcpy", "Memset"))]
+    evs = pick(profiling.device_spans(lambda: [fn() for _ in range(reps)],
+                                      check=lambda spans: (n := len(pick(spans))) > 0
+                                      and n % reps == 0))
     per = len(evs) // reps
     return float(np.median([sum(b - a for a, b in evs[i : i + per])
                             for i in range(0, len(evs), per)])) / 1e3
@@ -640,11 +648,12 @@ def fuzz_batch(enc: np.ndarray, S: int, seed: int) -> np.ndarray:
     return out
 
 
-def serving_phase(card: str, cfg, bench, corpus, cp, pcm5: np.ndarray) -> None:
+def serving_phase(card: str, cfg, bench, corpus, cp, pcm5: np.ndarray) -> dict:
     """Phase 8d: the parser fuzz on the card, then the host-parse decode,
     decode_stream in each mode, checkpoints and the CLI at S = 2048 on the
     bench content (phase 5's frames, the corrupt one included), each path
-    with its launch counts; then their times."""
+    with its launch counts; then their times. Returns decode_stream's x
+    realtime per mode, median over the reps."""
     import contextlib
     import io
     import tempfile
@@ -901,6 +910,321 @@ def serving_phase(card: str, cfg, bench, corpus, cp, pcm5: np.ndarray) -> None:
         + f"; decode_stream over {len(many)} batches, {STREAM_REPS} reps alternated: " + "; ".join(
             f"{k} {spread(v)} ms = {spread(list(rt(v)))} x realtime"
             for k, v in {**host_modes, **dev_modes}.items()))
+    return {k: float(np.median(rt(v))) for k, v in {**host_modes, **dev_modes}.items()}
+
+
+def shard_tile(S: int) -> np.ndarray:
+    """Content index of each stream for phase 10: the four bench contents
+    cycled, the second half shifted by one, so that the two halves (and the
+    two processes) hold different streams."""
+    s = np.arange(S)
+    return (s + s // (S // 2)) % 4
+
+
+def shard_worker(out: str) -> int:
+    """One of phase 10's two processes on the one card, started with
+    torchrun's environment (MASTER_ADDR/PORT, WORLD_SIZE, RANK, LOCAL_RANK
+    = 0): its half of the streams through the sharded fused decode and the
+    sharded fused encode, T frames each, the PCM, bytes and launch counts
+    written to `out`."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from lc3jax_torch import parallel
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+
+    rank = int(os.environ["RANK"])
+    parallel.init_multihost(backend="gloo")  # NCCL refuses two ranks on one card
+    mesh = parallel.multihost_stream_mesh()
+    if (mesh.rank, mesh.world, mesh.devices) != (rank, 2, (torch.device("cuda", 0),)):
+        raise AssertionError(f"rank {rank}: mesh {mesh}")
+    cfg = Lc3Config.new(48000, FrameDuration.MS10)
+    bench = np.load(ROOT / "tests" / "goldens" / "torch_bench_content.npz")
+    n = S_MAIN // mesh.world
+    tile = shard_tile(S_MAIN)[rank * n : (rank + 1) * n]
+    dec_step = parallel.make_sharded_decode_bytes_step(cfg, NBYTES, mesh)
+    enc_step = parallel.make_sharded_encode_bytes_step(cfg, NBYTES, mesh)
+    local = lambda a: parallel.multihost_shard_streams(mesh, np.ascontiguousarray(a))
+
+    def run():
+        st_d = parallel.sharded_decoder_init(cfg, n, mesh)
+        st_e = parallel.sharded_encoder_init(cfg, n, mesh)
+        pcm, frames = [], []
+        for f in range(T_FRAMES):
+            st_d, p = dec_step(st_d, local(bench["frames"][tile, f]))
+            st_e, b = enc_step(st_e, local(bench["pcm_in"][tile, f]))
+            pcm.append(p.gather().numpy())
+            frames.append(b.gather().numpy())
+        return np.stack(pcm, 1), np.stack(frames, 1)
+
+    T = T_FRAMES
+    (pcm, frames), counts = counted(f"rank {rank}", {
+        "parse": T, "tns_synthesis": T, "ltpf": T, "sns_pvq": T, "tns_autocorr": T,
+        "tns_analysis": T, "bitmodel_table_part": 2 * T, "pack": T}, run)
+    np.savez(out, pcm=pcm, frames=frames, counts=json.dumps(counts))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def two_processes(timeout: float = 300.0) -> list:
+    """Phase 10's two processes joined by gloo on 127.0.0.1, on the one
+    card; fails if either fails, hangs past `timeout` or exits non-zero.
+    Returns each rank's outputs."""
+    import socket
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = str(sock.getsockname()[1])
+    scratch = ROOT / "build"
+    scratch.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as tmp:
+        outs = [str(Path(tmp) / f"rank{r}.npz") for r in range(2)]
+        logs = [Path(tmp) / f"rank{r}.log" for r in range(2)]
+        env = lambda r: dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                             WORLD_SIZE="2", RANK=str(r), LOCAL_RANK="0")
+        procs = []
+        deadline = time.monotonic() + timeout
+        try:
+            for r in range(2):
+                with open(logs[r], "w") as log_file:  # the child holds its own copy
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(Path(__file__).resolve()), "--shard-worker", outs[r]],
+                        cwd=ROOT, env=env(r), stdout=log_file, stderr=subprocess.STDOUT))
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        finally:
+            for p in procs:  # a rank whose peer died waits in the rendezvous
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError("two processes: exit codes "
+                                 f"{[p.returncode for p in procs]}\n" + "\n".join(
+                                     log.read_text()[-3000:] for log in logs))
+        return [dict(np.load(o)) for o in outs]
+
+
+def sharding_phase(card: str, cfg, bench, pcm5: np.ndarray, fused5: np.ndarray,
+                   stream_rt: dict) -> None:
+    """Phase 10: lc3jax_torch.parallel on meshes ["cuda:0"] and ["cuda:0",
+    "cuda:0"] and in two processes, each path held equal to the unsharded
+    one and the oracle's bytes with its launches counted; then
+    lc3jax_torch.profiling beside tools/torch_profile.py, and the sharded
+    decode step's time beside decode_tensor."""
+    import torch
+
+    import torch_profile
+    from lc3jax_torch import parallel, profiling
+    from lc3jax_torch.coding import host_pack
+    from lc3jax_torch.coding.device import decode_bytes_step, device_parse, encode_bytes_step
+    from lc3jax_torch.convert import encoder_fields_to_numpy
+    from lc3jax_torch.dsp.decoder import ParsedFrames, decoder_init
+    from lc3jax_torch.dsp.encoder import encode_step, encoder_init
+    from lc3jax_torch.serving import BatchDecoder, BatchEncoder
+
+    dev = torch.device("cuda", 0)
+    S, T = S_MAIN, T_FRAMES
+    tile = shard_tile(S)
+    t0 = time.perf_counter()
+    took = lambda: f"({time.perf_counter() - t0:.1f} s into the phase)"
+    # phase 5 showed every stream of a content decoding alike, and phase 7b
+    # every stream of a content encoding to the oracle's frames: so rows 0-3
+    # of their outputs are the four contents
+    want_pcm, want_fused = pcm5[tile], fused5[tile]  # [S, T, ...]
+    encoded = bench["encoded"][tile, :T]
+    pay_np = [np.ascontiguousarray(bench["frames"][tile, f]) for f in range(T)]
+    pay = [torch.as_tensor(p, device=dev) for p in pay_np]
+    pcm_in = torch.as_tensor(np.ascontiguousarray(bench["pcm_in"][tile, :T].transpose(1, 0, 2)),
+                             device=dev)  # [T, S, nf]
+
+    def same(label: str, a, b) -> None:
+        """Two trees equal leaf by leaf (torch.equal, == for scalars)."""
+        la, lb = list(parallel.tree_leaves(a)), list(parallel.tree_leaves(b))
+        bad = [i for i, (x, y) in enumerate(zip(la, lb)) if not (
+            torch.equal(x, y) if torch.is_tensor(x) else x == y)]
+        if len(la) != len(lb) or bad:
+            raise AssertionError(f"{label}: {len(bad)} of {len(la)} leaves differ "
+                                 f"(first {bad[:4]})")
+
+    def packed_equal(label: str, fields: dict, f: int) -> None:
+        got = host_pack.pack_frames(cfg, encoder_fields_to_numpy(fields), NBYTES)
+        bad = np.flatnonzero((got != encoded[:, f]).any(1))
+        if bad.size:
+            raise AssertionError(f"{label}: frame {f} of streams {bad[:8].tolist()} differs "
+                                 "from the oracle's")
+
+    # ---- the unsharded references
+    st_d = decoder_init(cfg, S, dev)
+    ref_pcm = []
+    for f in range(T):
+        st_d, p = decode_bytes_step(cfg, NBYTES, st_d, pay[f])
+        ref_pcm.append(p)
+    ref_pcm = torch.stack(ref_pcm, 1)
+    if not np.array_equal(ref_pcm.cpu().numpy(), want_pcm):
+        raise AssertionError("sharding: the unsharded decode differs from phase 5's")
+    st_e, ref_fields = encoder_init(cfg, S, dev), []
+    for f in range(T):
+        st_e, fields = encode_step(cfg, NBYTES, st_e, pcm_in[f])
+        ref_fields.append(fields)
+    st_f, ref_bytes = encoder_init(cfg, S, dev), []
+    for f in range(T):
+        st_f, b = encode_bytes_step(cfg, NBYTES, st_f, pcm_in[f])
+        ref_bytes.append(b)
+    if not np.array_equal(torch.stack(ref_bytes, 1).cpu().numpy(), want_fused):
+        raise AssertionError("sharding: the unsharded fused encode differs from phase 7b's")
+    frames_t = [device_parse(cfg, NBYTES, p) for p in pay]
+    parsed = ParsedFrames(**{k.name: torch.stack([getattr(fr, k.name) for fr in frames_t])
+                             for k in dataclasses.fields(ParsedFrames)})  # [T, S, ...]
+
+    lines = []
+    for devices in (["cuda:0"], ["cuda:0", "cuda:0"]):
+        mesh = parallel.stream_mesh(devices)
+        n = mesh.size
+        label = f"mesh x{n}"
+        dec_n = {"tns_synthesis": n * T, "ltpf": n * T}
+        enc_n = {"sns_pvq": n * T, "tns_autocorr": n * T, "tns_analysis": n * T,
+                 "bitmodel_table_part": 2 * n * T}
+
+        def fused_decode():
+            step = parallel.make_sharded_decode_bytes_step(cfg, NBYTES, mesh)
+            st, out = parallel.sharded_decoder_init(cfg, S, mesh), []
+            for f in range(T):  # the payloads sharded from the host (pinned copies)
+                st, p = step(st, parallel.shard_streams(mesh, pay_np[f]))
+                out.append(p.gather(dev))
+            return st, torch.stack(out, 1)
+
+        (st, got), c1 = counted(f"{label} fused decode", dict(dec_n, parse=n * T), fused_decode)
+        if not torch.equal(got, ref_pcm):
+            raise AssertionError(f"{label}: the sharded fused decode differs from phase 5's PCM")
+        same(f"{label} fused decode state", st.gather(dev), st_d)
+
+        run = parallel.make_sharded_decode_frames(cfg, NBYTES * 8, mesh)
+        (st, got), c2 = counted(f"{label} decode_frames", dec_n, lambda: run(
+            parallel.sharded_decoder_init(cfg, S, mesh), parsed))
+        if not torch.equal(got.gather(dev).transpose(0, 1), ref_pcm):
+            raise AssertionError(f"{label}: the sharded decode_frames differs from phase 5's PCM")
+        same(f"{label} decode_frames state", st.gather(dev), st_d)
+
+        def encode():
+            step = parallel.make_sharded_encode_step(cfg, NBYTES, mesh)
+            st, out = parallel.sharded_encoder_init(cfg, S, mesh), []
+            for f in range(T):
+                st, fields = step(st, pcm_in[f])
+                out.append(fields.gather(dev))
+            return st, out
+
+        (st, got), c3 = counted(f"{label} encode step", enc_n, encode)
+        for f in range(T):
+            same(f"{label} encode step frame {f}", got[f], ref_fields[f])
+            packed_equal(f"{label} encode step", got[f], f)
+        same(f"{label} encode step state", st.gather(dev), st_e)
+
+        run = parallel.make_sharded_encode_frames(cfg, NBYTES, mesh)
+        (st, got), c4 = counted(f"{label} encode_frames", enc_n, lambda: run(
+            parallel.sharded_encoder_init(cfg, S, mesh), pcm_in))
+        got = got.gather(dev)
+        for f in range(T):
+            per = {k: v[f] if torch.is_tensor(v) else v for k, v in got.items()}
+            same(f"{label} encode_frames frame {f}", per, ref_fields[f])
+            packed_equal(f"{label} encode_frames", per, f)
+        same(f"{label} encode_frames state", st.gather(dev), st_e)
+
+        def fused_encode():
+            step = parallel.make_sharded_encode_bytes_step(cfg, NBYTES, mesh)
+            st, out = parallel.sharded_encoder_init(cfg, S, mesh), []
+            for f in range(T):
+                st, b = step(st, pcm_in[f])
+                out.append(b.gather())
+            return st, np.stack([b.numpy() for b in out], 1)
+
+        (st, got), c5 = counted(f"{label} fused encode", dict(enc_n, pack=n * T), fused_encode)
+        if not np.array_equal(got, want_fused):
+            raise AssertionError(f"{label}: the sharded fused encode's bytes differ from "
+                                 "BatchEncoder(device_pack=True)'s")
+        same(f"{label} fused encode state", st.gather(dev), st_f)
+        lines.append(f"{label}: fused decode (launches {c1}) and decode_frames ({c2}) = phase 5; "
+                     f"encode step ({c3}) and encode_frames ({c4}) fields = unsharded, packed = "
+                     f"the oracle's; fused encode ({c5}) = phase 7b; every state gathered = "
+                     "unsharded")
+    log("sharding", f"S={S} T={T}, bench content {took()}: " + "; ".join(lines))
+
+    ranks = two_processes()
+    got_pcm = np.concatenate([r["pcm"] for r in ranks])
+    got_bytes = np.concatenate([r["frames"] for r in ranks])
+    if not np.array_equal(got_pcm, want_pcm) or not np.array_equal(got_bytes, want_fused):
+        raise AssertionError("two processes: the concatenated halves differ from the one-process "
+                             "outputs")
+    log("sharding-processes", f"2 processes (gloo, 127.0.0.1) on one card, {S // 2} streams each "
+        f"{took()}: "
+        f"fused decode and fused encode halves = the one-process PCM and bytes; launches "
+        + "; ".join(f"rank {i} {r['counts']}" for i, r in enumerate(ranks)))
+
+    # ---- profiling: device_step_ms beside tools/torch_profile.py's busy per step
+    dec = BatchDecoder(cfg, S, NBYTES, device="cuda")
+    enc = BatchEncoder(cfg, S, NBYTES, device="cuda")
+    fenc = BatchEncoder(cfg, S, NBYTES, device="cuda", device_pack=True)
+    # (the step and its profiled steps: an encode step's 6,800 launches make a
+    # profile of 10 take seconds to read, so those take 5)
+    steps = {"fused decode": (dec, lambda d, x: (d, d.decode_tensor(x)), pay[0], 10),
+             "encode DSP": (enc, lambda e, x: (e, e.encode_fields_tensor(x)), pcm_in[0], 5),
+             "fused encode": (fenc, lambda e, x: (e, e.encode_tensor(x)), pcm_in[0], 5)}
+    lines = []
+    for name, (obj, fn, x, n) in steps.items():
+        ms = profiling.device_step_ms(fn, obj, (x,), steps=n)
+        busy = torch_profile.device_profile(lambda: fn(obj, x), n)
+        lines.append(f"{name} device_step_ms {ms:.4f} ms vs torch_profile busy "
+                     f"{busy['busy_ms']:.4f} ms/step ({busy['launches']:.0f} launches, "
+                     f"{n} steps each) {took()}")
+    # the pipelined host-parse loop of bench.py:174-183: its span on the
+    # card under the profiler, beside the host wall of the same loop with
+    # the profiler on and off, alternated over 3 reps
+    hp = BatchDecoder(cfg, S, NBYTES, device="cuda", device_parse=False)
+    hp.decode_stream(pay_np[:2], fetch=False)  # warm-up
+    M = 24
+    loop = lambda: hp.decode_stream([pay_np[f % T] for f in range(M)], fetch=False,
+                                    pipeline=True)  # returns once the last batch is computed
+    walls = {"span": [], "profiled wall": [], "wall": []}
+
+    def walled(key):
+        w0 = time.perf_counter()
+        loop()
+        walls[key].append((time.perf_counter() - w0) * 1e3)
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        walled("wall")
+        walls["span"].append(profiling.device_loop_span_ms(lambda: walled("profiled wall")))
+    rt = lambda ms: M * S * (cfg.nf / cfg.fs) / (float(np.median(ms)) / 1e3)
+    lines.append(f"decode_stream(pipeline=True, fetch=False) host parse over {M} batches, median "
+                 "of 3 alternated: " + ", ".join(f"{k} {spread(v)} ms = {rt(v):.1f}x realtime"
+                                                 for k, v in walls.items())
+                 + f" (phase 8d host wall, 48 batches: {stream_rt['pipelined']:.1f}x) {took()}")
+    log("profiling", f"{card}, S={S}, 48k/10ms/150B: " + "; ".join(lines))
+
+    # ---- times: the sharded fused decode step at both meshes beside decode_tensor
+    fns = {"decode_tensor": lambda: dec.decode_tensor(pay[0])}
+    for devices in (["cuda:0"], ["cuda:0", "cuda:0"]):
+        mesh = parallel.stream_mesh(devices)
+        step = parallel.make_sharded_decode_bytes_step(cfg, NBYTES, mesh)
+        held = {"st": parallel.sharded_decoder_init(cfg, S, mesh),
+                "x": parallel.shard_streams(mesh, pay[0])}
+
+        def one(step=step, held=held):
+            held["st"], _ = step(held["st"], held["x"])
+
+        fns[f"sharded x{mesh.size}"] = one
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    torch.cuda.synchronize()
+    ev = {k: [] for k in fns}
+    for _ in range(REPS):
+        for k, fn in fns.items():
+            ev[k].append(event_ms(fn))
+    log("sharding-times", f"{card}, S={S}, 48k/10ms/150B, CUDA events, {REPS} reps alternated, "
+        "median [min-max]: " + "; ".join(f"{k} {spread(v)} ms" for k, v in ev.items())
+        + f" {took()}")
 
 
 def main() -> int:
@@ -1207,7 +1531,7 @@ def main() -> int:
     if fused != want_fused:
         raise AssertionError(f"fused encode launch counts {fused} != {want_fused}")
     launches["pack"] = fused["pack"]
-    out = np.stack(out, 1)  # [S, T, nbytes]
+    out = fused_out = np.stack(out, 1)  # [S, T, nbytes]
     wrong = [s for s in range(S_MAIN)
              if not np.array_equal(out[s], bench["encoded"][s % 4, :T_FRAMES])]
     if wrong:
@@ -1268,7 +1592,7 @@ def main() -> int:
 
     # ---- 8d. serving: the parser fuzz, host-parse decode, decode_stream,
     # checkpoints, the CLI, and their times
-    serving_phase(card, cfg, bench, corpus, cp, pcm)
+    stream_rt = serving_phase(card, cfg, bench, corpus, cp, pcm)
 
     # ---- 9. times (CUDA events, median of REPS after warm-up)
     dec_ms = cuda_ms(lambda: dec.decode_tensor(pay))
@@ -1433,6 +1757,9 @@ def main() -> int:
     log("host-pack", f"{card}: the C++ host packer (native/lc3_bitstream.cc, {host_pack.N_THREADS} "
                      f"threads) on the pack kernel's bench fields, S={S_MAIN}, 150 B: "
                      f"{spread(host_ms)} ms wall, median [min-max] of {REPS}")
+
+    # ---- 10. sharding over the mesh and processes, and the profiling hooks
+    sharding_phase(card, cfg, bench, pcm, fused_out, stream_rt)
     log("done", f"{time.perf_counter() - t_start:.1f} s")
 
     src = "lc3jax_torch/csrc/"
@@ -1476,4 +1803,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-worker"]:
+        sys.exit(shard_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -36,6 +36,15 @@ Around them, the stream and file entry points of `lc3jax`:
 - `runner.cli` (`python -m lc3jax_torch.runner.cli`): encode, decode,
   compare and inspect `.lc3` files, with its own `runner.wav`.
 
+Beyond one card, and around every path:
+
+- `parallel`: the stream axis sharded over a mesh of devices (each step
+  run once per shard, no cross-shard operation) and over processes
+  (`init_multihost`: one process per card, the way to scale out), as
+  `lc3jax.parallel` shards it over a device mesh;
+- `profiling`: a step's device busy time and a loop's device span from
+  `torch.profiler`, a trace and a host wall timer (`lc3jax.profiling`).
+
 Every kernel has a plain PyTorch version beside it; a wrapper takes it only
 for a tensor on the CPU, and for a CUDA tensor launches the kernel or
 raises. Kernels are built with nvcc at first use (`_build.py`). The entry

@@ -1,0 +1,191 @@
+"""Profiling hooks (port of lc3jax/profiling.py): a trace of a region, a
+step's device time and a loop's device span from `torch.profiler`, and a
+host wall timer.
+
+What "device activity" is: on a machine with a card, the card's kernel,
+copy and fill intervals on its own clock; on a machine without one, the
+host's op intervals (as lc3jax falls back to the host lane), so that the
+CPU tests run the same code. On the card only `device_step_ms` records the
+host's ops too (it needs each step's host range): recording every eager
+op slows a loop that the host's launches bound.
+
+On the card nothing here returns a silent 0: a profile that records no
+device activity is taken again, and a second empty one raises
+(`torch.profiler` has lost every launch of a window once). A
+`torch.cuda.synchronize` fences the card, so lc3jax's fence by a
+device-to-host fetch and its wait for the collector are not needed.
+"""
+
+from __future__ import annotations
+
+import bisect
+import contextlib
+import os
+import tempfile
+import time
+
+import torch
+
+from .parallel import tree_leaves
+
+STEP_MARK = "lc3jax_torch::step"
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None = None):
+    """Record a region under torch.profiler (the host's ops, and the card's
+    activity where there is a card) and write a Chrome trace into `log_dir`
+    (default: lc3jax_torch-trace in the temp directory):
+
+        with lc3jax_torch.profiling.trace("tr"):
+            step(state, frames)
+
+    View it in TensorBoard's profiler plugin, Perfetto or chrome://tracing."""
+    from torch.profiler import profile, tensorboard_trace_handler
+
+    log_dir = log_dir or os.path.join(tempfile.gettempdir(), "lc3jax_torch-trace")
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=_activities(), on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield log_dir
+
+
+def _activities(host: bool = True) -> list:
+    """The host's ops (where asked, or where there is no card) and the card's."""
+    from torch.profiler import ProfilerActivity
+
+    if not torch.cuda.is_available():
+        return [ProfilerActivity.CPU]
+    return [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+
+
+def _fence() -> None:
+    """Wait for every card's queued work (nothing to wait for on the CPU)."""
+    for i in range(torch.cuda.device_count() if torch.cuda.is_available() else 0):
+        torch.cuda.synchronize(i)
+
+
+def _profile(run_fn, host: bool = False):
+    """run_fn() under torch.profiler between two fences: (activity spans,
+    step-mark spans), each a sorted list of (start_us, end_us, name) on the
+    profiler's clock. The marks need the host's ops recorded (`host`)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+
+    on_card = torch.cuda.is_available()
+    _fence()
+    with profile(activities=_activities(host)) as prof:
+        run_fn()
+        _fence()
+    activity = DeviceType.CUDA if on_card else DeviceType.CPU
+    spans, marks = [], []
+    for e in prof.events():
+        span = (e.time_range.start, e.time_range.end, e.name)
+        if e.name == STEP_MARK:  # the host's mark; its copy on the card's timeline is no work
+            if e.device_type == DeviceType.CPU:
+                marks.append(span)
+        elif e.device_type == activity:
+            spans.append(span)
+    return sorted(spans), sorted(marks)
+
+
+def _read_profile(run_fn, read, host: bool = False):
+    """read(*_profile(run_fn, host)), taken once more when it gives None
+    (not the activity expected); raises when the second gives None too."""
+    for attempt in range(2):
+        got = read(*_profile(run_fn, host))
+        if got is not None:
+            return got
+        if attempt == 0:
+            print("[profiling] the profile did not record the device activity expected; "
+                  "profiling again", flush=True)
+    raise RuntimeError("profiling: two profiles did not record the device activity expected")
+
+
+def device_spans(run_fn, check=None) -> list:
+    """The device activity of one run_fn() call: a sorted list of
+    (start_us, end_us, name). A profile whose activity is empty, or fails
+    check(spans), is taken once more; if that one fails too, this raises."""
+    return _read_profile(run_fn, lambda spans, _: spans if spans and (
+        check is None or check(spans)) else None)
+
+
+def union_ms(spans) -> float:
+    """ms covered by the union of the spans (each counted once where they
+    overlap)."""
+    busy, end = 0.0, float("-inf")
+    for a, b, *_ in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def device_loop_span_ms(run_fn) -> float:
+    """The span of a host-driven loop on the device's clock, in ms: the
+    first device event's start to the last one's end, idle gaps included
+    (the number for a host-and-device pipeline such as
+    `BatchDecoder.decode_stream(pipeline=True)`: frames over this span is
+    its throughput). The card is fenced before and after run_fn()."""
+    spans = device_spans(run_fn)
+    return (max(b for _, b, _ in spans) - spans[0][0]) / 1e3
+
+
+def device_step_ms(step_fn, init_carry, step_args, steps: int = 10) -> float:
+    """A step's device time in ms: the median over `steps` steps of one
+    step's device busy time, the union of its kernel, copy and fill
+    intervals (one eager step is many kernels, so the union, not the sum of
+    their durations).
+
+    Runs `carry, out = step_fn(carry, *step_args)` once to warm up, then
+    `steps` times from the warm-up's carry under torch.profiler, the card
+    synchronised after each step so that no step's work overlaps another's.
+    A device span belongs to the step within whose host range it starts."""
+    from torch.profiler import record_function
+
+    carry, _ = step_fn(init_carry, *step_args)  # warm-up
+    _fence()
+
+    def run():
+        nonlocal carry
+        for _ in range(steps):
+            with record_function(STEP_MARK):
+                carry, _ = step_fn(carry, *step_args)
+                _fence()
+
+    def per_step_busy(spans, marks):
+        starts = [a for a, _, _ in marks]
+        per_step = [[] for _ in marks]
+        for span in spans:
+            i = bisect.bisect_right(starts, span[0]) - 1
+            if i >= 0:
+                per_step[i].append(span)
+        if len(marks) != steps or not all(per_step):
+            return None
+        return sorted(union_ms(s) for s in per_step)
+
+    busy = _read_profile(run, per_step_busy, host=True)
+    return busy[len(busy) // 2]
+
+
+class StepTimer:
+    """Host wall time per step, for quick triage: the result's cards are
+    synchronised after the step (nothing is for CPU tensors)."""
+
+    def __init__(self):
+        self.times_ms: list[float] = []
+
+    @contextlib.contextmanager
+    def measure(self, result_getter=None):
+        t0 = time.perf_counter()
+        yield
+        if result_getter is not None:
+            cards = {x.device for x in tree_leaves(result_getter())
+                     if isinstance(x, torch.Tensor) and x.is_cuda}
+            for d in cards:
+                torch.cuda.synchronize(d)
+        self.times_ms.append((time.perf_counter() - t0) * 1e3)
+
+    @property
+    def median_ms(self) -> float:
+        s = sorted(self.times_ms)
+        return s[len(s) // 2] if s else 0.0

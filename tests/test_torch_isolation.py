@@ -40,6 +40,17 @@ with tempfile.TemporaryDirectory() as d:
     save_state(os.path.join(d, "s.npz"), host.state)
     back = load_state(os.path.join(d, "s.npz"), decoder_init(cfg, 2, "cpu"))
 assert np.array_equal(back.ltpf.hist_x.numpy(), host.state.ltpf.hist_x.numpy())
+import torch
+from lc3jax_torch import parallel, profiling
+from lc3jax_torch.coding.device import decode_bytes_step
+mesh = parallel.stream_mesh(["cpu"] * 2)
+step = parallel.make_sharded_decode_bytes_step(cfg, 120, mesh)
+st, sharded = step(parallel.sharded_decoder_init(cfg, 2, mesh), g["payloads"][:2])
+assert np.array_equal(sharded.gather().numpy(), pcm)
+timer = profiling.StepTimer()
+with timer.measure(lambda: sharded):
+    sharded.gather()
+assert timer.median_ms > 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] == "lc3jax" or m.split(".")[0].startswith("jax"))
 assert not loaded, loaded
@@ -49,8 +60,9 @@ print("ok")
 
 def test_package_decodes_without_importing_jax():
     """A decode (fused and host-parse), a pipelined decode_stream, an encode
-    (host pack and fused) and a checkpoint round trip on the CPU load no
-    lc3jax and no jax module."""
+    (host pack and fused), a checkpoint round trip and a decode sharded in
+    two with `parallel` and `profiling` imported, on the CPU, load no lc3jax
+    and no jax module."""
     res = subprocess.run([sys.executable, "-c", _CODEC_WITHOUT_JAX], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
@@ -77,15 +89,19 @@ def test_port_data_equals_jax_data():
 
 
 @pytest.mark.parametrize("entry", ["BatchDecoder", "BatchDecoder-host_parse", "BatchEncoder",
-                                   "BatchEncoder-device_pack", "encoder_init", "decoder_init"])
+                                   "BatchEncoder-device_pack", "encoder_init", "decoder_init",
+                                   "stream_mesh", "sharded_decoder_init"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
-    """Built without `device`, an entry point or state constructor asks for
-    CUDA: where no card is present it raises rather than carrying on on the
-    CPU."""
+    """Built without `device`, an entry point, state constructor or stream
+    mesh asks for CUDA: where no card is present it raises rather than
+    carrying on on the CPU."""
     from lc3jax_torch import serving
     from lc3jax_torch.config import FrameDuration, Lc3Config
     from lc3jax_torch.dsp.decoder import decoder_init
     from lc3jax_torch.dsp.encoder import encoder_init
+    from lc3jax_torch.parallel import sharded_decoder_init, stream_mesh, tree_leaves
+
+    mesh = lambda **kw: stream_mesh([kw["device"]] if kw else None)
 
     make = {
         "BatchDecoder": lambda **kw: serving.BatchDecoder(cfg, 2, 40, **kw),
@@ -96,15 +112,21 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
                                                                       **kw),
         "encoder_init": lambda **kw: encoder_init(cfg, 2, **kw),
         "decoder_init": lambda **kw: decoder_init(cfg, 2, **kw),
+        "stream_mesh": mesh,
+        "sharded_decoder_init": lambda **kw: sharded_decoder_init(cfg, 2, mesh(**kw)),
     }[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Lc3Config.new(16000, FrameDuration.MS10)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
     built = make(device="cpu")
-    tensors = [v for v in vars(built).values() if isinstance(v, torch.Tensor)]
-    assert built.device.type == "cpu" if entry.startswith("Batch") else \
-        tensors and all(t.device.type == "cpu" for t in tensors)
+    if entry.startswith("Batch"):
+        assert built.device.type == "cpu"
+    elif entry == "stream_mesh":
+        assert built.devices == (torch.device("cpu"),)
+    else:
+        tensors = [v for v in tree_leaves(built) if isinstance(v, torch.Tensor)]
+        assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -62,31 +62,19 @@ def median_ms(fn, steps: int) -> float:
 
 
 def device_profile(fn, steps: int) -> dict:
-    """Busy ms per step (union of device intervals), launches per step and
-    the top names by device time, from torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Busy ms per step (the union of the card's intervals over `steps`
+    steps issued back to back, lc3jax_torch.profiling), launches per step
+    and the top names by device time, from torch.profiler."""
+    from lc3jax_torch import profiling
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
-    busy, end = 0.0, -1.0
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    spans = profiling.device_spans(lambda: [fn() for _ in range(steps)])
     by_name = defaultdict(float)
-    for e in evs:
-        by_name[e.name] += e.time_range.end - e.time_range.start
+    for a, b, name in spans:
+        by_name[name] += b - a
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {
-        "busy_ms": busy / steps / 1e3,
-        "launches": len(evs) / steps,
+        "busy_ms": profiling.union_ms(spans) / steps,
+        "launches": len(spans) / steps,
         "top": [(name[:60], us / steps / 1e3) for name, us in top],
     }
 
