@@ -6,7 +6,14 @@ encode, time.
 
 Phases, each printing one line (any failure exits non-zero before the
 last line). All run at 48 kHz / 10 ms / 150 B, S = 2048 streams, unless
-stated:
+stated. Every serving path (BatchDecoder, BatchEncoder, decode_stream, the
+CLI, the sharded steps) runs compiled: one CUDA graph a key, captured at
+its first call (lc3jax_torch/compiled.py). Launches are counted in
+lc3jax_torch._build.launches, where each kernel wrapper launches; a
+replay calls no wrapper, so each graph adds the launches its capture
+recorded on every replay, and the launch counts below read the same as
+for eager steps. Phase 11 holds those records against the kernels
+torch.profiler sees in a replay of every graph:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
 2. build: the eight kernels from lc3jax_torch/csrc, one nvcc per source, all
@@ -72,7 +79,7 @@ stated:
    8 kHz / 7.5 ms / 30 B, by stream mod 3 encoded, random and encoded with
    3 bytes overwritten (bad_frame equal on every frame, every field on the
    good ones); then on the bench content's T frames (phase 5's corrupt one
-   included), each path with every launch counter zeroed just before it
+   included), each path with the launch counter reset just before it
    and read just after: BatchDecoder(device_parse=False).decode equal to
    phase 5's PCM (parse 0, TNS synthesis T, LTPF T launches);
    decode_stream host-parse sequential and pipelined equal to it, with
@@ -89,8 +96,8 @@ stated:
    decode_stream over 48 batches, host-parse sequential against pipelined
    and device-parse fetch=True against fetch=False and chunk_frames=12,
    alternated rep by rep;
-9. times: CUDA events after warm-up, median of 20: the fused decode step,
-   each kernel, its plain version and the library call where one exists;
+9. times: CUDA events after warm-up, median of 20: the fused decode step
+   (decode_tensor, a replayed graph), each kernel, its plain version and the library call where one exists;
    beside each kernel's (and the library call's) per-call event time, its
    device time: the median duration of the kernel itself over 20 calls
    under torch.profiler, without the wrapper's host work. LTPF is timed on
@@ -103,7 +110,8 @@ stated:
    likewise: the fewest cycles a greedy round takes with one of the bench's
    streams alone, times the most rounds a stream of the encoder's bench
    arguments needs.
-   The encode DSP step (CUDA events, host wall, thread CPU time), the
+   The encode DSP step (a replayed graph; CUDA events, host wall, thread
+   CPU time), the
    whole encode with the host pack (host wall, thread CPU time) and the
    fused encode step (CUDA events, host wall) alternate over 20 reps, each
    given as median [min-max]; the C++ host packer alone on the fields of
@@ -126,7 +134,28 @@ stated:
    the pipelined host-parse decode_stream over 24 batches beside the same
    loop's host wall with the profiler on and off and phase 8d's host wall,
    and the sharded fused decode step's CUDA-event time at
-   both meshes beside decode_tensor, alternated, median of 20.
+   both meshes beside decode_tensor, alternated, median of 20;
+11. compiled: over the bench content's T frames with the corrupt frame and
+   nbytes 150 -> 100 -> 150 -> 100 B inside the run (the 100 B frames from
+   the eager fused encode), each compiled path equal to its eager step
+   function, every output and the state after every frame (torch.equal):
+   the fused decode (decode_tensor), the host-parse decode, decode_stream
+   with chunk_frames=2 across the changes and chunk_frames=12 over the
+   bench's frames (against eager decode_bytes_frames), make_decode_step /
+   make_encode_step (one a frame size, the state handed back and forth),
+   the encode DSP step, the fused encode and the sharded fused decode at
+   meshes ["cuda:0"] and ["cuda:0", "cuda:0"] (one a frame size); each key
+   captured once and then only replayed, no state copied on the serving
+   paths, launches counted; per graph (every serving graph, both
+   make_*_step graphs of each size, every shard's graph), the kernels
+   torch.profiler sees in one replay equal to the eager step's launches
+   and to the counts its capture recorded (which each replay adds to
+   lc3jax_torch._build.launches), its nodes and its capture time; the graphs' pools (torch.cuda.memory_snapshot); then the eager
+   step against its replay (fused decode, host-parse decode step, encode
+   DSP, fused encode; CUDA events and host wall, alternated, median
+   [min-max] of 20) and decode_stream over 48 batches in each device-parse
+   mode against the same loop of eager steps (host wall, 5 reps
+   alternated).
 
 Then the card's line, one JSON line with the kernels (each with its event
 and device times and its bound: the larger of its bytes over 3.35 TB/s
@@ -532,9 +561,12 @@ def noise_pcm(cfg, S: int, T: int, seed: int) -> np.ndarray:
     return np.clip(rng.standard_normal((T, S, cfg.nf)) * 28000, -32768, 32767).astype(np.int16)
 
 
-def capture_kernel_inputs(enc, pcm):
-    """Run one encode step and keep the arguments each encoder kernel gets."""
+def capture_kernel_inputs(cfg, pcm):
+    """Run one eager encode step from a fresh state and keep the arguments
+    each encoder kernel gets (the serving steps run captured graphs, whose
+    kernels' arguments live in the graph's pool)."""
     from lc3jax_torch.dsp import bitmodel_kernel, sns_kernel, tns_enc_kernel
+    from lc3jax_torch.dsp.encoder import encode_step, encoder_init
 
     seen = {}
     spies = [(sns_kernel, "sns_pvq"), (tns_enc_kernel, "tns_autocorr"),
@@ -546,17 +578,21 @@ def capture_kernel_inputs(enc, pcm):
             return _orig(*a, **kw)
         setattr(m, n, spy)
     try:
-        enc.encode_fields_tensor(pcm)
+        encode_step(cfg, NBYTES, encoder_init(cfg, pcm.shape[0], pcm.device), pcm)
     finally:
         for (m, n), orig in zip(spies, originals):
             setattr(m, n, orig)
     return seen
 
 
-def capture_ltpf_inputs(dec, frames):
-    """Decode the frames and keep the arguments the last decode step gave
-    the LTPF kernel."""
+def capture_ltpf_inputs(cfg, frames):
+    """Decode the frames with the eager fused step and keep the arguments
+    the last decode step gave the LTPF kernel."""
+    import torch
+
+    from lc3jax_torch.coding.device import decode_bytes_step
     from lc3jax_torch.dsp import ltpf_kernel
+    from lc3jax_torch.dsp.decoder import decoder_init
 
     seen = {}
     orig = ltpf_kernel.ltpf_both_passes
@@ -567,8 +603,9 @@ def capture_ltpf_inputs(dec, frames):
 
     ltpf_kernel.ltpf_both_passes = spy
     try:
+        st = decoder_init(cfg, frames[0].shape[0], "cuda")
         for f in frames:
-            dec.decode(f)
+            st, _ = decode_bytes_step(cfg, NBYTES, st, torch.as_tensor(f, device="cuda"))
     finally:
         ltpf_kernel.ltpf_both_passes = orig
     return seen["ltpf"]
@@ -604,32 +641,46 @@ def equal_outputs(name: str, a, b) -> None:
             raise AssertionError(f"{name} kernel != plain (output {i}), streams {bad}")
 
 
-# the launch counters: name -> (module path, attribute); the serving phase
-# zeroes them just before each path it drives and reads them just after
-COUNTERS = {
-    "parse": ("lc3jax_torch.coding.parse_kernel", "launches"),
-    "tns_synthesis": ("lc3jax_torch.dsp.tns_kernel", "launches"),
-    "ltpf": ("lc3jax_torch.dsp.ltpf_kernel", "launches"),
-    "sns_pvq": ("lc3jax_torch.dsp.sns_kernel", "launches"),
-    "tns_autocorr": ("lc3jax_torch.dsp.tns_enc_kernel", "autocorr_launches"),
-    "tns_analysis": ("lc3jax_torch.dsp.tns_enc_kernel", "analysis_launches"),
-    "bitmodel_table_part": ("lc3jax_torch.dsp.bitmodel_kernel", "launches"),
-    "pack": ("lc3jax_torch.coding.pack_kernel", "launches"),
+# the eight kernels: name -> (C entry, which lc3jax_torch._build.launches
+# counts by; the __global__ function, as torch.profiler names it; the
+# source under lc3jax_torch/csrc/; the TPU kernel it replaces)
+KERNELS = {
+    "parse": ("lc3t_parse", "parse_kernel", "parse.cu", "lc3jax/coding/pallas_parse.py:597"),
+    "tns_synthesis": ("lc3t_tns_synthesis", "tns_synthesis_kernel", "tns_synthesis.cu",
+                      "lc3jax/dsp/pallas_tns.py:226"),
+    "ltpf": ("lc3t_ltpf_both_passes", "ltpf_kernel", "ltpf.cu",
+             "lc3jax/dsp/pallas_ltpf.py:122"),
+    "sns_pvq": ("lc3t_sns_pvq", "sns_pvq_kernel", "sns_pvq.cu", "lc3jax/dsp/pallas_sns.py:199"),
+    "tns_autocorr": ("lc3t_tns_autocorr", "tns_autocorr_kernel", "tns_autocorr.cu",
+                     "lc3jax/dsp/pallas_tns.py:158"),
+    "tns_analysis": ("lc3t_tns_analysis", "tns_analysis_kernel", "tns_analysis.cu",
+                     "lc3jax/dsp/pallas_tns.py:190"),
+    "bitmodel_table_part": ("lc3t_bitmodel", "bitmodel_kernel", "bitmodel.cu",
+                            "lc3jax/dsp/pallas_bitmodel.py:235"),
+    "pack": ("lc3t_pack", "pack_kernel", "pack.cu", "lc3jax/coding/pallas_pack.py:574"),
 }
+EMIT_PACK = "lc3t_bitmodel:emit_pack"  # the bit model's launches with emit_pack
+
+
+def launch_counts(counts=None) -> dict:
+    """Each kernel's launches in `counts` (default: lc3jax_torch._build.launches,
+    the port's one launch counter, by C entry), by the kernel's name."""
+    from lc3jax_torch import _build
+
+    counts = _build.launches if counts is None else counts
+    return {k: counts[entry] for k, (entry, *_) in KERNELS.items()}
 
 
 def counted(label: str, expect: dict, fn):
-    """Run fn with every launch counter zeroed just before and read just
+    """Run fn with the launch counter reset just before and read just
     after; fail unless each kernel launched as often as `expect` says (0
     where it does not name it). Returns (fn's result, the counts)."""
-    import importlib
+    from lc3jax_torch import _build
 
-    mods = {k: (importlib.import_module(m), a) for k, (m, a) in COUNTERS.items()}
-    for m, a in mods.values():
-        setattr(m, a, 0)
+    _build.launches.clear()
     out = fn()
-    got = {k: getattr(m, a) for k, (m, a) in mods.items()}
-    want = {k: expect.get(k, 0) for k in COUNTERS}
+    got = launch_counts()
+    want = {k: expect.get(k, 0) for k in KERNELS}
     if got != want:
         raise AssertionError(f"{label}: launch counts {got} != {want}")
     return out, {k: v for k, v in got.items() if v}
@@ -661,7 +712,6 @@ def serving_phase(card: str, cfg, bench, corpus, cp, pcm5: np.ndarray) -> dict:
 
     import torch
 
-    from lc3jax_torch import serving
     from lc3jax_torch.checkpoint import load_state, save_state
     from lc3jax_torch.coding import parse_kernel
     from lc3jax_torch.coding.host_parse import HostParser
@@ -772,21 +822,15 @@ def serving_phase(card: str, cfg, bench, corpus, cp, pcm5: np.ndarray) -> dict:
     if not all(t.is_cuda for t in got) or not np.array_equal(
             stacked([t.cpu().numpy() for t in got]), pcm5):
         raise AssertionError("decode_stream fetch=False: not CUDA tensors equal to phase 5")
-    chunks, real = [], serving.decode_bytes_frames
-
-    def spy(c, nb, st, x):
-        chunks.append(x.shape[0])
-        return real(c, nb, st, x)
-
-    serving.decode_bytes_frames = spy
-    try:
-        d = BatchDecoder(cfg, S, NBYTES, device="cuda")
-        got, _ = counted("decode_stream chunk_frames=5", fused_counts,
-                         lambda: d.decode_stream(iter(batches), chunk_frames=5))
-    finally:
-        serving.decode_bytes_frames = real
-    if chunks != [5, 5] or not np.array_equal(stacked(got), pcm5):
-        raise AssertionError(f"decode_stream chunk_frames=5: chunks {chunks}, or PCM differs")
+    d = BatchDecoder(cfg, S, NBYTES, device="cuda")
+    got, _ = counted("decode_stream chunk_frames=5", fused_counts,
+                     lambda: d.decode_stream(iter(batches), chunk_frames=5))
+    # the chunk graph (key ("chunk", nbytes, T)) replayed twice, the last 2 batches alone
+    calls = {k: (s.captures, s.calls) for k, s in d.steps.items()}
+    if calls != {("chunk", NBYTES, 5): (1, 2), ("fused", NBYTES, 0): (1, 2)} or not np.array_equal(
+            stacked(got), pcm5):
+        raise AssertionError(f"decode_stream chunk_frames=5: steps (captures, calls) {calls}, "
+                             "or PCM differs")
     lines.append(f"decode_stream device-parse fetch=True (plc_frames {S // 4}), fetch=False "
                  f"(CUDA tensors) and chunk_frames=5 (chunks 5 + 5, then 2 batches alone) = "
                  f"phase 5, launches {n} each")
@@ -913,6 +957,22 @@ def serving_phase(card: str, cfg, bench, corpus, cp, pcm5: np.ndarray) -> dict:
     return {k: float(np.median(rt(v))) for k, v in {**host_modes, **dev_modes}.items()}
 
 
+def same(label: str, a, b) -> None:
+    """Two trees equal leaf by leaf (torch.equal, dtype and shape included;
+    == for scalars)."""
+    import torch
+
+    from lc3jax_torch.compiled import leaves
+
+    la, lb = leaves(a), leaves(b)
+    bad = [i for i, (x, y) in enumerate(zip(la, lb)) if not (
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(x, y)
+        if torch.is_tensor(x) else x == y)]
+    if len(la) != len(lb) or bad:
+        raise AssertionError(f"{label}: {len(bad)} of {len(la)} leaves differ "
+                             f"(first {bad[:4]})")
+
+
 def shard_tile(S: int) -> np.ndarray:
     """Content index of each stream for phase 10: the four bench contents
     cycled, the second half shifted by one, so that the two halves (and the
@@ -1037,15 +1097,6 @@ def sharding_phase(card: str, cfg, bench, pcm5: np.ndarray, fused5: np.ndarray,
     pay = [torch.as_tensor(p, device=dev) for p in pay_np]
     pcm_in = torch.as_tensor(np.ascontiguousarray(bench["pcm_in"][tile, :T].transpose(1, 0, 2)),
                              device=dev)  # [T, S, nf]
-
-    def same(label: str, a, b) -> None:
-        """Two trees equal leaf by leaf (torch.equal, == for scalars)."""
-        la, lb = list(parallel.tree_leaves(a)), list(parallel.tree_leaves(b))
-        bad = [i for i, (x, y) in enumerate(zip(la, lb)) if not (
-            torch.equal(x, y) if torch.is_tensor(x) else x == y)]
-        if len(la) != len(lb) or bad:
-            raise AssertionError(f"{label}: {len(bad)} of {len(la)} leaves differ "
-                                 f"(first {bad[:4]})")
 
     def packed_equal(label: str, fields: dict, f: int) -> None:
         got = host_pack.pack_frames(cfg, encoder_fields_to_numpy(fields), NBYTES)
@@ -1226,6 +1277,367 @@ def sharding_phase(card: str, cfg, bench, pcm5: np.ndarray, fused5: np.ndarray,
         "median [min-max]: " + "; ".join(f"{k} {spread(v)} ms" for k, v in ev.items())
         + f" {took()}")
 
+def kernels_seen(fn, reps: int = 5) -> dict:
+    """The launches of each of the eight kernels that torch.profiler sees in
+    one call of fn (0 where it sees none), read per call over reps + 1
+    calls (lc3jax_torch.profiling.call_spans); the first call is not read
+    (a profile has lost the first launch of a replayed graph in it), and
+    the others must agree, or the profile is taken again."""
+    import re
+
+    from lc3jax_torch import profiling
+
+    count = lambda spans: {k: sum(1 for _, _, n in spans
+                                  if re.search(rf"(?<![A-Za-z_]){glob}", n))
+                           for k, (_, glob, *_) in KERNELS.items()}
+    per = profiling.call_spans(fn, reps + 1, check=lambda per: all(
+        count(p) == count(per[1]) for p in per[2:]))
+    return count(per[1])
+
+
+def pool_bytes(pool) -> int:
+    """Bytes of the card's memory segments in a graph memory pool."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def compiled_phase(card: str, cfg, bench) -> None:
+    """Phase 11: every compiled path held torch.equal to its eager step
+    function, outputs and state after every frame, at S = 2048 on the bench
+    content over T frames (the corrupt frame included) with nbytes 150 ->
+    100 -> 150 -> 100 inside the run (three switches, so that the steps made
+    one a frame size hand the state back and forth); each key captured
+    once; the kernels the profiler sees in one replay of every graph equal
+    to the eager step's launches; nodes and capture time per graph; eager
+    against replayed times; the graphs' memory."""
+    import torch
+
+    from lc3jax_torch import parallel
+    from lc3jax_torch.coding.device import (decode_bytes_step, decode_bytes_step_stats,
+                                            device_parse, encode_bytes_step)
+    from lc3jax_torch.coding.host_parse import HostParser
+    from lc3jax_torch.compiled import tree_map
+    from lc3jax_torch.dsp.decoder import decode_step, decoder_init, make_decode_step
+    from lc3jax_torch.dsp.encoder import encode_step, encoder_init, make_encode_step
+    from lc3jax_torch.dsp.streaming import decode_bytes_frames
+    from lc3jax_torch.serving import BatchDecoder, BatchEncoder
+
+    dev = torch.device("cuda", 0)
+    S, T = S_MAIN, T_FRAMES
+    t0 = time.perf_counter()
+    took = lambda: f"({time.perf_counter() - t0:.1f} s into the phase)"
+    tile = np.arange(S) % 4
+    # three switches, each on a chunk of 2; frame 5 holds the corrupt frame
+    plan = [NBYTES] * 6 + [100] * 2 + [NBYTES] * 2 + [100] * 2
+    snap = lambda st: tree_map(torch.clone, st)
+    pcm_in = [torch.as_tensor(np.ascontiguousarray(bench["pcm_in"][tile, f]), device=dev)
+              for f in range(T)]
+
+    # ---- the eager references, frame by frame
+    st, ref_fields, ref_estate = encoder_init(cfg, S, dev), [], []
+    for x, nb in zip(pcm_in, plan):
+        st, fields = encode_step(cfg, nb, st, x)
+        ref_fields.append(fields)
+        ref_estate.append(snap(st))
+    st, ref_bytes, ref_fstate = encoder_init(cfg, S, dev), [], []
+    for x, nb in zip(pcm_in, plan):
+        st, b = encode_bytes_step(cfg, nb, st, x)
+        ref_bytes.append(b)
+        ref_fstate.append(snap(st))
+    # the bench's own frames at 150 B, the fused encode's at 100 B
+    pay_np = [np.ascontiguousarray(bench["frames"][tile, f]) if nb == NBYTES
+              else ref_bytes[f].cpu().numpy() for f, nb in enumerate(plan)]
+    pay = [torch.as_tensor(p, device=dev) for p in pay_np]
+    st, ref_pcm, ref_dstate, n_bad = decoder_init(cfg, S, dev), [], [], 0
+    for x, nb in zip(pay, plan):
+        st, pcm, bad = decode_bytes_step_stats(cfg, nb, st, x)
+        ref_pcm.append(pcm)
+        ref_dstate.append(snap(st))
+        n_bad += int(bad)
+    if n_bad != S // 4:
+        raise AssertionError(f"compiled: the eager decode concealed {n_bad} frames, not {S // 4}")
+    parser = HostParser(cfg, dev)
+    st, ref_host, ref_hstate = decoder_init(cfg, S, dev), [], []
+    for x, nb in zip(pay_np, plan):
+        parser.parse(x)
+        st, pcm = decode_step(cfg, nb * 8, st, parser.upload())
+        ref_host.append(pcm)
+        ref_hstate.append(snap(st))
+
+    def per_frame(label, outs, states, ref_out, ref_st):
+        for f in range(T):
+            same(f"{label} frame {f}", outs[f], ref_out[f])
+            same(f"{label} state after frame {f}", states[f], ref_st[f])
+
+    def once(label, steps, calls):
+        """Each key captured once, the rest replays; the coder's own state
+        never copied."""
+        got = {k: (s.captures, s.calls, s.state_copies) for k, s in steps.items()}
+        if got != {k: (1, n, 0) for k, n in calls.items()}:
+            raise AssertionError(f"{label}: steps (captures, calls, state copies) {got}")
+
+    calls_of = {nb: plan.count(nb) for nb in (NBYTES, 100)}  # 8 and 4
+    plan_calls = lambda kind, T=None: {(kind, nb, *(() if T is None else (T,))): n
+                                       for nb, n in calls_of.items()}
+    lines = []
+    dec_n = {"tns_synthesis": T, "ltpf": T}
+
+    # fused decode (decode_tensor)
+    dec = BatchDecoder(cfg, S, NBYTES, device="cuda")
+
+    def run_dec():
+        outs, states = [], []
+        for x in pay:
+            outs.append(dec.decode_tensor(x))
+            states.append(snap(dec.state))
+        return outs, states
+
+    (outs, states), n = counted("compiled fused decode", dict(dec_n, parse=T), run_dec)
+    per_frame("fused decode", outs, states, ref_pcm, ref_dstate)
+    once("fused decode", dec.steps, plan_calls("stats", 0))
+    if dec.metrics.plc_frames != S // 4 or len({o.data_ptr() for o in outs}) != T:
+        raise AssertionError(f"fused decode: plc_frames {dec.metrics.plc_frames}, or results "
+                             "share memory")
+    lines.append(f"fused decode (launches {n})")
+
+    # host-parse decode
+    hp = BatchDecoder(cfg, S, NBYTES, device="cuda", device_parse=False)
+
+    def run_host():
+        outs, states = [], []
+        for x in pay_np:
+            outs.append(torch.as_tensor(hp.decode(x), device=dev))
+            states.append(snap(hp.state))
+        return outs, states
+
+    (outs, states), n = counted("compiled host-parse decode", dec_n, run_host)
+    per_frame("host-parse decode", outs, states, ref_host, ref_hstate)
+    once("host-parse decode", hp.steps, plan_calls("parsed", 0))
+    lines.append(f"host-parse decode (launches {n})")
+
+    # decode_stream: chunks of 2 across the rate changes (6 chunks, 2 keys),
+    # and one chunk of 12 over the bench's own frames against eager decode_bytes_frames
+    d2 = BatchDecoder(cfg, S, NBYTES, device="cuda")
+    outs, n = counted("compiled decode_stream chunk_frames=2", dict(dec_n, parse=T),
+                      lambda: d2.decode_stream(iter(pay_np), fetch=False, chunk_frames=2))
+    for f in range(T):
+        same(f"decode_stream chunk_frames=2 frame {f}", outs[f], ref_pcm[f])
+    same("decode_stream chunk_frames=2 state", d2.state, ref_dstate[-1])
+    once("decode_stream chunk_frames=2", d2.steps,
+         {("chunk", nb, 2): n // 2 for nb, n in calls_of.items()})
+    bench12 = np.stack([np.ascontiguousarray(bench["frames"][tile, f]) for f in range(T)])
+    want_st, want12 = decode_bytes_frames(cfg, NBYTES, decoder_init(cfg, S, dev),
+                                          torch.as_tensor(bench12, device=dev))
+    d12 = BatchDecoder(cfg, S, NBYTES, device="cuda")
+    outs, n12 = counted("compiled decode_stream chunk_frames=12", dict(dec_n, parse=T),
+                        lambda: d12.decode_stream(list(bench12), chunk_frames=12))
+    same("decode_stream chunk_frames=12", [torch.as_tensor(o, device=dev) for o in outs],
+         list(want12.unbind(0)))
+    same("decode_stream chunk_frames=12 state", d12.state, want_st)
+    once("decode_stream chunk_frames=12", d12.steps, {("chunk", NBYTES, 12): 1})
+    lines.append(f"decode_stream chunk_frames=2 across the rate changes (launches {n}) and "
+                 f"chunk_frames=12 = eager decode_bytes_frames (launches {n12})")
+
+    # make_decode_step / make_encode_step, one a frame size, the state handed on
+    dsteps = {nb: make_decode_step(cfg, nb * 8) for nb in (NBYTES, 100)}
+    esteps = {nb: make_encode_step(cfg, nb) for nb in (NBYTES, 100)}
+    sd, se = decoder_init(cfg, S, dev), encoder_init(cfg, S, dev)
+    for f, nb in enumerate(plan):
+        sd, pcm = dsteps[nb](sd, device_parse(cfg, nb, pay[f]))
+        same(f"make_decode_step frame {f}", (sd, pcm), (ref_dstate[f], ref_pcm[f]))
+        se, fields = esteps[nb](se, pcm_in[f])
+        same(f"make_encode_step frame {f}", (se, fields), (ref_estate[f], ref_fields[f]))
+    made = {**{("decode", nb): s for nb, s in dsteps.items()},
+            **{("encode", nb): s for nb, s in esteps.items()}}
+    if any((s.captures, s.calls) != (1, calls_of[k[1]]) for k, s in made.items()):
+        raise AssertionError("make_*_step: " + str({k: (s.captures, s.calls)
+                                                     for k, s in made.items()}))
+    lines.append("make_decode_step and make_encode_step (state copies at each switch: "
+                 + ", ".join(f"{k[0]} {k[1]} B {s.state_copies}" for k, s in made.items()) + ")")
+
+    # encode DSP and fused encode
+    enc_n = {"sns_pvq": T, "tns_autocorr": T, "tns_analysis": T, "bitmodel_table_part": 2 * T}
+    encoders = {}
+    for fused in (False, True):
+        e = encoders[fused] = BatchEncoder(cfg, S, NBYTES, device="cuda", device_pack=fused)
+
+        def run_enc(e=e, fused=fused):
+            outs, states = [], []
+            for x, nb in zip(pcm_in, plan):
+                outs.append(e.encode_tensor(x, nb) if fused else e.encode_fields_tensor(x, nb))
+                states.append(snap(e.state))
+            return outs, states
+
+        want = dict(enc_n, pack=T, **{"bitmodel emit_pack": T}) if fused else enc_n
+        (outs, states), n = counted(f"compiled {'fused encode' if fused else 'encode DSP'}",
+                                    {k: v for k, v in want.items() if k != "bitmodel emit_pack"},
+                                    run_enc)
+        label = "fused encode" if fused else "encode DSP"
+        per_frame(label, outs, states, ref_bytes if fused else ref_fields,
+                  ref_fstate if fused else ref_estate)
+        once(label, e.steps, plan_calls("bytes" if fused else "fields"))
+        lines.append(f"{label} (launches {n})")
+
+    # the sharded fused decode at both meshes, one sharded step a frame size
+    sharded = {}
+    for devices in (["cuda:0"], ["cuda:0", "cuda:0"]):
+        mesh = parallel.stream_mesh(devices)
+        steps = sharded[mesh.size] = {nb: parallel.make_sharded_decode_bytes_step(cfg, nb, mesh)
+                                      for nb in (NBYTES, 100)}
+
+        def run_sharded(steps=steps, mesh=mesh):
+            st, outs, states = parallel.sharded_decoder_init(cfg, S, mesh), [], []
+            for x, nb in zip(pay_np, plan):
+                st, p = steps[nb](st, parallel.shard_streams(mesh, x))
+                outs.append(p.gather(dev))
+                states.append(st.gather(dev))
+            return outs, states
+
+        k = mesh.size
+        (outs, states), n = counted(f"compiled sharded x{k}",
+                                    {"parse": k * T, "tns_synthesis": k * T, "ltpf": k * T},
+                                    run_sharded)
+        per_frame(f"sharded fused decode x{k}", outs, states, ref_pcm, ref_dstate)
+        caps = [(s.captures, s.calls) for st_ in steps.values() for s in st_.steps]
+        if caps != [(1, calls_of[NBYTES])] * k + [(1, calls_of[100])] * k:
+            raise AssertionError(f"sharded x{k}: (captures, calls) per shard {caps}")
+        lines.append(f"sharded fused decode x{k} (launches {n})")
+    log("compiled", f"S={S} T={T}, nbytes {plan}, the corrupt frame included: every compiled "
+        "path = its eager step, each output and the state after every frame (torch.equal), each "
+        f"key captured once, no state copy in serving: " + "; ".join(lines) + f" {took()}")
+
+    # ---- per graph: the kernels the profiler sees in one replay, nodes, capture ms
+    parser.parse(pay_np[0])
+    frames0 = parser.upload()
+    graphs = {
+        "fused decode": (dec.steps[("stats", NBYTES, 0)], (pay[0],),
+                         {"parse": 1, "tns_synthesis": 1, "ltpf": 1}),
+        "host-parse decode step": (hp.steps[("parsed", NBYTES, 0)], (frames0,),
+                                   {"tns_synthesis": 1, "ltpf": 1}),
+        "chunk of 12": (d12.steps[("chunk", NBYTES, 12)],
+                        (torch.as_tensor(bench12, device=dev),),
+                        {"parse": T, "tns_synthesis": T, "ltpf": T}),
+        "encode DSP": (encoders[False].steps[("fields", NBYTES)], (pcm_in[0],),
+                       {"sns_pvq": 1, "tns_autocorr": 1, "tns_analysis": 1,
+                        "bitmodel_table_part": 2}),
+        "fused encode": (encoders[True].steps[("bytes", NBYTES)], (pcm_in[0],),
+                         {"sns_pvq": 1, "tns_autocorr": 1, "tns_analysis": 1,
+                          "bitmodel_table_part": 2, "pack": 1}),
+    }
+    # the steps made one a frame size, on the inputs their graphs last took
+    graphs.update({
+        f"make_decode_step {nb} B": (s, s.buffers(), {"tns_synthesis": 1, "ltpf": 1})
+        for nb, s in dsteps.items()})
+    graphs.update({
+        f"make_encode_step {nb} B": (s, s.buffers(), {"sns_pvq": 1, "tns_autocorr": 1,
+                                                      "tns_analysis": 1, "bitmodel_table_part": 2})
+        for nb, s in esteps.items()})
+    graphs.update({
+        f"sharded x{k} {nb} B shard {i}": (s, s.buffers(),
+                                           {"parse": 1, "tns_synthesis": 1, "ltpf": 1})
+        for k, steps in sharded.items() for nb, st_ in steps.items()
+        for i, s in enumerate(st_.steps)})
+    lines = []
+    for name, (step, args, eager) in graphs.items():
+        g = step.graphs[0]
+        recorded = {k: v for k, v in launch_counts(g.counts).items() if v}
+        seen = kernels_seen(lambda: step.run(step.cache.state, *args))
+        seen = {k: v for k, v in seen.items() if v}
+        if recorded != eager or seen != eager:
+            raise AssertionError(f"{name}: the capture recorded {recorded} and the profiler "
+                                 f"sees {seen} in one replay; the eager step launches {eager}")
+        lines.append(f"{name}: replay launches {seen}, {step.node_counts()[0]} nodes, "
+                     f"captured in {g.capture_ms:.1f} ms")
+    pools = {"decoder": dec, "host-parse decoder": hp, "encoder": encoders[False],
+             "fused encoder": encoders[True]}
+    lines.append("graph pools " + ", ".join(
+        f"{k} {pool_bytes(o._steps.pool) / 2**20:.1f} MiB" for k, o in pools.items())
+        + f"; reserved {torch.cuda.memory_reserved() / 2**20:.1f} MiB")
+    log("compiled-graphs", f"{card}: " + "; ".join(lines) + f" {took()}")
+
+    # ---- times: eager step against replay, alternated, median [min-max] of REPS
+    st_e, st_ee = decoder_init(cfg, S, dev), encoder_init(cfg, S, dev)
+    hframes = parser.upload()
+    pairs = {
+        "fused decode": (lambda: decode_bytes_step_stats(cfg, NBYTES, st_e, pay[0]),
+                         lambda: dec.steps[("stats", NBYTES, 0)](dec.state, pay[0])),
+        "host-parse decode step": (
+            lambda: decode_step(cfg, NBYTES * 8, st_e, hframes),
+            lambda: hp.steps[("parsed", NBYTES, 0)].run(hp.state, *hp.steps[
+                ("parsed", NBYTES, 0)].buffers())),
+        "encode DSP": (lambda: encode_step(cfg, NBYTES, st_ee, pcm_in[0]),
+                       lambda: encoders[False].encode_fields_tensor(pcm_in[0])),
+        "fused encode": (lambda: encode_bytes_step(cfg, NBYTES, st_ee, pcm_in[0]),
+                         lambda: encoders[True].encode_tensor(pcm_in[0])),
+    }
+    out = {}
+    for name, fns in pairs.items():
+        ev, wall = ([], []), ([], [])
+        for r in range(3 + REPS):
+            for i, fn in enumerate(fns):
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                w0 = time.perf_counter()
+                a.record()
+                fn()
+                b.record()
+                b.synchronize()
+                if r >= 3:
+                    ev[i].append(a.elapsed_time(b))
+                    wall[i].append((time.perf_counter() - w0) * 1e3)
+        out[name] = (ev, wall)
+    rt = lambda ms: S * (cfg.nf / cfg.fs) / (float(np.median(ms)) / 1e3)
+    log("compiled-times", f"{card}, S={S}, 48k/10ms/150B, eager and replay alternated, "
+        f"{REPS} reps, median [min-max] ms (x realtime of the median): " + "; ".join(
+            f"{k} eager events {spread(ev[0])} wall {spread(wall[0])} ({rt(wall[0]):.1f}x), "
+            f"replay events {spread(ev[1])} wall {spread(wall[1])} ({rt(wall[1]):.1f}x)"
+            for k, (ev, wall) in out.items()) + f" {took()}")
+
+    # ---- decode_stream over 48 batches in each device-parse mode, against
+    # the same loops of eager steps (the serving loop before the graphs)
+    many = [pay_np[f % 6] for f in range(4 * T)]  # the 150 B frames
+    audio = len(many) * S * cfg.nf / cfg.fs
+    to_dev = lambda b: torch.as_tensor(b).pin_memory().to(dev, non_blocking=True)
+
+    def eager_loop(mode):
+        st = decoder_init(cfg, S, dev)
+        if mode == "chunk_frames=12":
+            for i in range(0, len(many), T):
+                st, pcm = decode_bytes_frames(cfg, NBYTES, st, to_dev(np.stack(many[i:i + T])))
+                pcm.cpu().numpy()
+            return
+        for b in many:
+            if mode == "fetch=True":
+                st, pcm, bad = decode_bytes_step_stats(cfg, NBYTES, st, to_dev(b))
+                pcm.cpu().numpy()
+                int(bad)
+            else:
+                st, pcm = decode_bytes_step(cfg, NBYTES, st, to_dev(b))
+        torch.cuda.synchronize()
+
+    kw = {"fetch=True": {}, "fetch=False": {"fetch": False}, "chunk_frames=12": {"chunk_frames": 12}}
+    decs = {k: BatchDecoder(cfg, S, NBYTES, device="cuda") for k in kw}
+    walls = {(k, w): [] for k in kw for w in ("eager", "replay")}
+    for r in range(STREAM_REPS + 1):
+        for k in kw:
+            for w in ("eager", "replay"):
+                torch.cuda.synchronize()
+                w0 = time.perf_counter()
+                if w == "eager":
+                    eager_loop(k)
+                else:
+                    decs[k].decode_stream(iter(many), **kw[k])
+                if r:
+                    walls[(k, w)].append((time.perf_counter() - w0) * 1e3)
+    xrt = lambda ms: audio / (float(np.median(ms)) / 1e3)
+    log("compiled-stream", f"{card}, S={S}, decode_stream over {len(many)} batches, device "
+        f"parse, eager loop and compiled decode_stream alternated, {STREAM_REPS} reps, median "
+        "[min-max] ms host wall: " + "; ".join(
+            f"{k} {w} {spread(v)} = {xrt(v):.1f}x realtime" for (k, w), v in walls.items())
+        + f" {took()}")
+
 
 def main() -> int:
     import torch
@@ -1322,8 +1734,7 @@ def main() -> int:
                                   ("48k/10ms 75B S=1", cfg, 75, 1, 12)):
         t_c = decoder_tables(c, nb * 8, dev)
         lt_cases[label] = ltpf_pass_args(t_c, *ltpf_stress(t_c.p, S, seed, dev))[0]
-    dec_probe = BatchDecoder(cfg, S_MAIN, NBYTES, device="cuda")
-    lt_main = capture_ltpf_inputs(dec_probe, [bench["frames"][tile, f] for f in range(2)])
+    lt_main = capture_ltpf_inputs(cfg, [bench["frames"][tile, f] for f in range(2)])
     lt_cases["decode step S=2048"] = lt_main
     for label, a in lt_cases.items():
         equal_outputs(f"ltpf ({label})", ltpf_kernel.ltpf_both_passes(*a),
@@ -1336,8 +1747,7 @@ def main() -> int:
 
     # ---- 4. encoder kernels against their plain versions
     pcm_in = bench["pcm_in"]  # [4, T, nf]
-    enc_probe = BatchEncoder(cfg, S_MAIN, NBYTES, device="cuda")
-    real = capture_kernel_inputs(enc_probe, torch.as_tensor(pcm_in[tile, 0], device=dev))
+    real = capture_kernel_inputs(cfg, torch.as_tensor(pcm_in[tile, 0], device=dev))
     g = np.random.default_rng(3)
     rnd = torch.as_tensor((g.standard_normal((S_MAIN, cfg.ne)) * 10 ** g.uniform(0, 3, (S_MAIN, 1)))
                           .astype(np.float32), device=dev)
@@ -1457,12 +1867,10 @@ def main() -> int:
     frames = bench["frames"]  # [4, T, nbytes], frame 5 of content 2 corrupt
     want = bench["pcm_out"][:, :T_FRAMES]
     dec = BatchDecoder(cfg, S_MAIN, NBYTES, device="cuda")
-    dec_counters = (parse_kernel, tns_kernel, ltpf_kernel)
-    for m in dec_counters:
-        m.launches = 0
+    _build.launches.clear()
     pcm = [dec.decode(frames[tile, f]) for f in range(T_FRAMES)]
-    launches = {"parse": parse_kernel.launches, "tns_synthesis": tns_kernel.launches,
-                "ltpf": ltpf_kernel.launches}
+    launches = {k: n for k, n in launch_counts().items()
+                if k in ("parse", "tns_synthesis", "ltpf")}
     pcm = np.stack(pcm, 1)  # [S, T, nf]
     if any(n != T_FRAMES for n in launches.values()):
         raise AssertionError(f"decode launch counts {launches} != {T_FRAMES} steps")
@@ -1494,17 +1902,12 @@ def main() -> int:
 
     # ---- 7. the encode slice: BatchEncoder over T frames, S = 2048
     enc = BatchEncoder(cfg, S_MAIN, NBYTES, device="cuda")
-    enc_counters = {"sns_pvq": lambda: sns_kernel.launches,
-                    "tns_autocorr": lambda: tns_enc_kernel.autocorr_launches,
-                    "tns_analysis": lambda: tns_enc_kernel.analysis_launches,
-                    "bitmodel_table_part": lambda: bitmodel_kernel.launches}
-    sns_kernel.launches = bitmodel_kernel.launches = 0
-    tns_enc_kernel.autocorr_launches = tns_enc_kernel.analysis_launches = 0
+    enc_kernels = ("sns_pvq", "tns_autocorr", "tns_analysis", "bitmodel_table_part")
+    _build.launches.clear()
     out = [enc.encode(pcm_in[tile, f]) for f in range(T_FRAMES)]
-    for k, read in enc_counters.items():
-        launches[k] = read()
+    launches.update({k: launch_counts()[k] for k in enc_kernels})
     out = np.stack(out, 1)  # [S, T, nbytes]
-    expect = {k: (2 if k == "bitmodel_table_part" else 1) * T_FRAMES for k in enc_counters}
+    expect = {k: (2 if k == "bitmodel_table_part" else 1) * T_FRAMES for k in enc_kernels}
     if any(launches[k] != n for k, n in expect.items()):
         raise AssertionError(f"encode launch counts { {k: launches[k] for k in expect} } "
                              f"!= {expect}")
@@ -1520,13 +1923,10 @@ def main() -> int:
 
     # ---- 7b. the fused encode slice: PCM to bytes on the card, S = 2048
     fenc = BatchEncoder(cfg, S_MAIN, NBYTES, device="cuda", device_pack=True)
-    sns_kernel.launches = bitmodel_kernel.launches = bitmodel_kernel.emit_launches = 0
-    tns_enc_kernel.autocorr_launches = tns_enc_kernel.analysis_launches = 0
-    pack_kernel.launches = 0
+    _build.launches.clear()
     out = [fenc.encode(pcm_in[tile, f]) for f in range(T_FRAMES)]
-    fused = {k: read() for k, read in enc_counters.items()}
-    fused["pack"] = pack_kernel.launches
-    fused["bitmodel emit_pack"] = bitmodel_kernel.emit_launches
+    fused = {k: launch_counts()[k] for k in (*enc_kernels, "pack")}
+    fused["bitmodel emit_pack"] = _build.launches[EMIT_PACK]
     want_fused = dict(expect, pack=T_FRAMES, **{"bitmodel emit_pack": T_FRAMES})
     if fused != want_fused:
         raise AssertionError(f"fused encode launch counts {fused} != {want_fused}")
@@ -1717,11 +2117,7 @@ def main() -> int:
     times["tns_autocorr"] = (ac_ms, times["tns_autocorr"][1])
     # each kernel's device time apart from its wrapper's host work, after
     # every event time so that no profiler session precedes one
-    kernel_of = {"parse": "parse_kernel", "tns_synthesis": "tns_synthesis_kernel",
-                 "ltpf": "ltpf_kernel", "sns_pvq": "sns_pvq_kernel",
-                 "tns_autocorr": "tns_autocorr_kernel", "tns_analysis": "tns_analysis_kernel",
-                 "bitmodel_table_part": "bitmodel_kernel", "pack": "pack_kernel"}
-    dev_ms = {k: device_ms(lambda: kern(*a), kernel_of[k]) for k, (a, kern, _) in kargs.items()}
+    dev_ms = {k: device_ms(lambda: kern(*a), KERNELS[k][1]) for k, (a, kern, _) in kargs.items()}
     emit_dev = device_ms(lambda: bitmodel_kernel.bitmodel_table_part(*bm_args, emit_pack=True),
                          "bitmodel_kernel")
     lt_main_ms[1] = device_ms(lt_main_fn, "ltpf_kernel")
@@ -1760,39 +2156,32 @@ def main() -> int:
 
     # ---- 10. sharding over the mesh and processes, and the profiling hooks
     sharding_phase(card, cfg, bench, pcm, fused_out, stream_rt)
+
+    # ---- 11. compiled steps against the eager steps, counts, times
+    compiled_phase(card, cfg, bench)
     log("done", f"{time.perf_counter() - t_start:.1f} s")
 
-    src = "lc3jax_torch/csrc/"
-    meta = {
-        "parse": ("parse.cu", "lc3jax/coding/pallas_parse.py:597"),
-        "tns_synthesis": ("tns_synthesis.cu", "lc3jax/dsp/pallas_tns.py:226"),
-        "ltpf": ("ltpf.cu", "lc3jax/dsp/pallas_ltpf.py:122"),
-        "sns_pvq": ("sns_pvq.cu", "lc3jax/dsp/pallas_sns.py:199"),
-        "tns_autocorr": ("tns_autocorr.cu", "lc3jax/dsp/pallas_tns.py:158"),
-        "tns_analysis": ("tns_analysis.cu", "lc3jax/dsp/pallas_tns.py:190"),
-        "bitmodel_table_part": ("bitmodel.cu", "lc3jax/dsp/pallas_bitmodel.py:235"),
-        "pack": ("pack.cu", "lc3jax/coding/pallas_pack.py:574"),
-    }
     names = {"ltpf": "ltpf_both_passes"}
     kernels = [
-        {"name": names.get(k, k), "route": "cuda", "source": src + f, "replaces": r,
+        {"name": names.get(k, k), "route": "cuda", "source": "lc3jax_torch/csrc/" + f,
+         "replaces": r,
          "launches": launches[k], "max_abs_err": errs[k], "ms": times[k][0],
          "plain_ms": times[k][1], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
          "library_ms": library[k], "device_ms": dev_ms[k]}
-        for k, (f, r) in meta.items()
+        for k, (_, _, f, r) in KERNELS.items()
     ]
-    kernels[list(meta).index("bitmodel_table_part")].update(
+    kernels[list(KERNELS).index("bitmodel_table_part")].update(
         emit_pack_launches=fused["bitmodel emit_pack"], emit_pack_ms=emit[0],
         emit_pack_device_ms=emit_dev, emit_pack_plain_ms=emit[1],
         emit_pack_bound_ms=emit_bound[0])
-    kernels[list(meta).index("ltpf")].update(
+    kernels[list(KERNELS).index("ltpf")].update(
         decode_step_args_ms=lt_main_ms[0], decode_step_args_device_ms=lt_main_ms[1],
         decode_step_args_plain_ms=lt_main_ms[2])
-    kernels[list(meta).index("tns_autocorr")].update(library_device_ms=library_dev["tns_autocorr"])
-    kernels[list(meta).index("tns_synthesis")].update(
+    kernels[list(KERNELS).index("tns_autocorr")].update(library_device_ms=library_dev["tns_autocorr"])
+    kernels[list(KERNELS).index("tns_synthesis")].update(
         chain_floor_ms=chain_floor, chain_cycles_a_line=min(chain_cyc), chain_lines=chain_lines,
         sm_clock_mhz=clock)
-    kernels[list(meta).index("sns_pvq")].update(
+    kernels[list(KERNELS).index("sns_pvq")].update(
         chain_floor_ms=pvq_floor, chain_cycles_a_round=min(pvq_cyc), chain_rounds=pvq_rounds,
         sm_clock_mhz=clock)
     print(card)

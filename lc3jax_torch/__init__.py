@@ -36,6 +36,14 @@ Around them, the stream and file entry points of `lc3jax`:
 - `runner.cli` (`python -m lc3jax_torch.runner.cli`): encode, decode,
   compare and inspect `.lc3` files, with its own `runner.wav`.
 
+Every step runs compiled (`compiled`, the counterpart of lc3jax's
+`jax.jit(..., donate_argnums=(0,))`): one CUDA graph per step and argument
+shapes, captured at its first call and replayed after that, the state
+updated in place in static buffers (`dsp.decoder.make_decode_step`,
+`dsp.encoder.make_encode_step`, `dsp.streaming.make_*_frames`, the
+serving step caches, the sharded steps); on the CPU the same plumbing
+calls the step eagerly.
+
 Beyond one card, and around every path:
 
 - `parallel`: the stream axis sharded over a mesh of devices (each step

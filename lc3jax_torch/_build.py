@@ -27,6 +27,7 @@ Pointers and the stream are passed as `ctypes.c_void_p`, ints as `c_int`.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -138,10 +139,18 @@ def check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed ({code}: {msg})")
 
 
-def launch(name: str, index: int, *args) -> None:
+# kernel launches since the last reset, by C entry name, and by
+# "name:tag" for a launch made with a tag; the one launch counter of the
+# port, counted here and nowhere else (compiled.py adds a replayed graph's
+# captured launches, which run no wrapper)
+launches: collections.Counter = collections.Counter()
+
+
+def launch(name: str, index: int, *args, tag: str | None = None) -> None:
     """Call the C entry `name` with `args` and the raw handle of the current
     stream of CUDA device `index`, made the current device around the call
-    only when it is not; raise on a non-zero code.
+    only when it is not; raise on a non-zero code, else count the launch in
+    `launches` (under `name`, and under "name:tag" too where a tag is given).
 
     Kept to a few C calls (no Stream object, no device context on the usual
     path): for a kernel of a few microseconds this host work is most of what
@@ -156,13 +165,28 @@ def launch(name: str, index: int, *args) -> None:
             err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
         check(err, name)
+    launches[name] += 1
+    if tag is not None:
+        launches[f"{name}:{tag}"] += 1
 
 
 def record_on_stream(event, device) -> None:
     """Record `event` on the current stream of CUDA `device`: the stream on
     which a copy to that device, queued just before, runs (the host
-    parser's ring waits on it, coding/host_parse.py). Like `launch`, the one
-    place outside the kernels that names a stream."""
+    parser's ring waits on it, coding/host_parse.py). With `launch` and
+    `fork`, the one place outside the kernels that names a stream."""
     import torch
 
     event.record(torch.cuda.current_stream(device))
+
+
+def fork(device, stream=None):
+    """`stream` (a new stream on CUDA `device` when None), made to wait for
+    the work queued so far on the device's current stream, and returned:
+    the stream on which compiled.py warms a step up and captures it."""
+    import torch
+
+    if stream is None:
+        stream = torch.cuda.Stream(device=device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    return stream

@@ -91,17 +91,33 @@ class HostParser:
         return {name: b.view(bool) if dt is np.uint8 else b
                 for (name, dt, _), b in zip(FIELDS, slot.arrays)}
 
-    def upload(self) -> ParsedFrames:
-        """The latest parse's fields as a ParsedFrames on the parser's
-        device: copied from the pinned set with non_blocking=True (ordered
-        before whatever the current stream runs next), or cloned on the CPU."""
-        slot = self._last
+    @property
+    def last(self) -> _Slot | None:
+        """The buffer set of the latest parse: hand it to `upload` from
+        another thread (decode_stream's prefetch thread parses, the decoding
+        thread uploads)."""
+        return self._last
+
+    def upload(self, slot: _Slot | None = None, into: ParsedFrames | None = None) -> ParsedFrames:
+        """A parse's fields (the latest one's where slot is None) as a
+        ParsedFrames on the parser's device. On a card, copied from the
+        pinned set with non_blocking=True (ordered before whatever the
+        current stream runs next) into `into`, a compiled step's static
+        field buffers (`CompiledStep.buffers()`: the step then copies
+        nothing more), or into new tensors; on the CPU copied into `into` or
+        cloned."""
+        slot = self._last if slot is None else slot
+        if into is None:
+            out = [t.to(self.device, non_blocking=True) if self.device.type == "cuda"
+                   else t.clone() for t in slot.tensors]
+            into = ParsedFrames(**{name: t.view(torch.bool) if dt is np.uint8 else t
+                                   for (name, dt, _), t in zip(FIELDS, out)})
+        else:
+            for (name, dt, _), t in zip(FIELDS, slot.tensors):
+                dst = getattr(into, name)
+                (dst.view(torch.uint8) if dt is np.uint8 else dst).copy_(t, non_blocking=True)
         if self.device.type == "cuda":
-            out = [t.to(self.device, non_blocking=True) for t in slot.tensors]
             if slot.copied is None:
                 slot.copied = torch.cuda.Event()
             _build.record_on_stream(slot.copied, self.device)
-        else:
-            out = [t.clone() for t in slot.tensors]
-        return ParsedFrames(**{name: t.view(torch.bool) if dt is np.uint8 else t
-                               for (name, dt, _), t in zip(FIELDS, out)})
+        return into

@@ -47,7 +47,6 @@ from .. import tables as T
 from ..config import FrameDuration, Lc3Config
 
 I64 = torch.int64
-launches = 0  # kernel launches since the last reset
 
 NBITS_BW = (0, 1, 2, 2, 3)  # bandwidth field width by fs_ind
 SIDE_ROWS = 34  # rows of the side matrix csrc/pack.cu reads (enum Side)
@@ -380,7 +379,6 @@ def device_pack(cfg: Lc3Config, nbytes: int, fields: dict) -> torch.Tensor:
         if t.device != x_q.device or tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"device_pack: {name} must be {dtype} {shape} on {x_q.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    global launches
     # the contiguous views stay bound to names until the launch is queued
     xq_c, res_c, pk_c = x_q.contiguous(), res.contiguous(), pk.contiguous()
     side = side_rows(fields)
@@ -389,5 +387,4 @@ def device_pack(cfg: Lc3Config, nbytes: int, fields: dict) -> torch.Tensor:
     _build.launch("lc3t_pack", x_q.get_device(), xq_c.data_ptr(), res_c.data_ptr(),
                   side.data_ptr(), pk_c.data_ptr(), tab.data_ptr(), out.data_ptr(), S, ne,
                   nbytes, NBITS_BW[cfg.fs_ind], lpc_weighting(cfg, nbytes))
-    launches += 1
     return out

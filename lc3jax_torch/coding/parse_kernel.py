@@ -23,7 +23,6 @@ from .. import tables as T
 from ..config import FrameDuration, Lc3Config
 from ..dsp.decoder import ParsedFrames
 
-launches = 0  # kernel launches since the last reset
 
 # The table image, at the byte offsets csrc/parse.cu reads (its k* constants):
 # (name, source table, narrow type, byte offset). The cumulative frequency
@@ -89,7 +88,6 @@ def output_views(pool32: torch.Tensor, pool8: torch.Tensor, S: int, ne: int) -> 
 
 def parse_frames_cuda(cfg: Lc3Config, nbytes: int, payloads) -> ParsedFrames:
     """payloads: uint8 [S, nbytes] CUDA tensor -> ParsedFrames (CUDA)."""
-    global launches
     if payloads.device.type != "cuda":
         raise ValueError(f"parse_frames_cuda: payloads must be on a CUDA device, "
                          f"got {payloads.device}")
@@ -106,5 +104,4 @@ def parse_frames_cuda(cfg: Lc3Config, nbytes: int, payloads) -> ParsedFrames:
                   _device_tables(payloads.device).data_ptr(), pool32.data_ptr(),
                   pool8.data_ptr(), S, nbytes, ne, cfg.fs_ind,
                   1 if cfg.n_ms == FrameDuration.MS7P5 else 0)
-    launches += 1
     return output_views(pool32, pool8, S, ne)

@@ -43,9 +43,6 @@ import torch
 from .. import _build
 from .. import tables as T
 
-launches = 0  # kernel launches since the last reset
-emit_launches = 0  # of those, the launches with emit_pack
-
 
 @lru_cache(maxsize=None)
 def tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -129,7 +126,6 @@ def bitmodel_table_part(c, g, sym, rate_flag: int, ne: int, lastnz, emit_pack: b
         if t.device != c.device or tuple(t.shape) != shape or t.dtype != torch.int32:
             raise ValueError(f"bitmodel_table_part: {name} must be int32 {shape} on {c.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    global launches, emit_launches
     # the contiguous views stay bound to names until the launch is queued
     c32, g32, sym32, lnz32 = (t.contiguous() for t in (c, g, sym, lastnz))
     tab = composed_tables(c.device, rate_flag)
@@ -137,9 +133,8 @@ def bitmodel_table_part(c, g, sym, rate_flag: int, ne: int, lastnz, emit_pack: b
     pk = c32.new_empty((5 * NT, S)) if emit_pack else None
     _build.launch("lc3t_bitmodel", c.get_device(), c32.data_ptr(), g32.data_ptr(),
                   sym32.data_ptr(), lnz32.data_ptr(), tab.data_ptr(), out.data_ptr(),
-                  pk.data_ptr() if emit_pack else None, S, NT, ne // 4)
-    launches += 1
+                  pk.data_ptr() if emit_pack else None, S, NT, ne // 4,
+                  tag="emit_pack" if emit_pack else None)
     if emit_pack:
-        emit_launches += 1
         return out, pk
     return out

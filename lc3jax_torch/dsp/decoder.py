@@ -17,9 +17,11 @@ Reference parity: decoder/lc3_decoder.rs:73-154 stage order.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import torch
 
+from ..compiled import CompiledStep
 from ..config import Lc3Config
 from ..devices import resolve_device
 from .ltpf import LtpfState, ltpf_init, ltpf_run
@@ -286,3 +288,16 @@ def decode_step(cfg: Lc3Config, nbits: int, state: DecoderState, frames: ParsedF
     """One batched frame: parsed fields [S, ...] -> (state, pcm int16 [S, nf])."""
     x = decode_spectrum(cfg, nbits, frames)
     return decode_synthesis(cfg, nbits, state, x, frames, debug_taps=debug_taps)
+
+
+def make_decode_step(cfg: Lc3Config, nbits: int, device="cuda") -> CompiledStep:
+    """decode_step compiled for (cfg, nbits): `step(state, frames) ->
+    (state, pcm)`, one CUDA graph per stream count S on `device` (the
+    counterpart of lc3jax's `jax.jit(partial(decode_step, cfg, nbits),
+    donate_argnums=(0,))`).
+
+    The state is donated: the state returned is the step's own buffers,
+    passing it back costs no copy, and the next call overwrites it; a state
+    of your own is copied in once, and passing it again raises. The PCM is
+    a fresh tensor each call (`compiled.CompiledStep`)."""
+    return CompiledStep(partial(decode_step, cfg, nbits), ("decode_step", cfg, nbits), device)

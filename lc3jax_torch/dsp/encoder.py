@@ -34,13 +34,14 @@ sits on f32 knife edges (quantizer rounding, PVQ and codebook argmins). So:
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
 
 from .. import fp
 from .. import tables as T
+from ..compiled import CompiledStep
 from ..config import FrameDuration, Lc3Config
 from ..devices import resolve_device
 from . import bitmodel_kernel, libmexact, sns_kernel, tns_enc_kernel
@@ -877,3 +878,12 @@ def encode_step(cfg: Lc3Config, nbytes: int, state: EncoderState, x_s,
         **{f"quant_{k}": v for k, v in quant_fields.items()},
     )
     return new_state, fields
+
+
+def make_encode_step(cfg: Lc3Config, nbytes: int, device="cuda") -> CompiledStep:
+    """encode_step compiled for (cfg, nbytes): `step(state, pcm) ->
+    (state, fields)`, one CUDA graph per stream count S on `device` (the
+    counterpart of lc3jax's `jax.jit(partial(encode_step, cfg, nbytes),
+    donate_argnums=(0,))`). The state is donated as in
+    `dsp.decoder.make_decode_step`; the fields are fresh tensors each call."""
+    return CompiledStep(partial(encode_step, cfg, nbytes), ("encode_step", cfg, nbytes), device)

@@ -15,6 +15,8 @@ for a CPU tensor.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -75,9 +77,16 @@ def _filter_params(p, pitch_index):
 
 def _reach_back(p) -> int:
     """Max denominator reach-back: the largest p_int over every value of the
-    9-bit pitch index, plus ceil(l_den / 2)."""
-    p_int, _ = _filter_params(p, torch.arange(1 << 9, dtype=torch.int32))
-    return int(p_int.max()) + (p.l_den - p.l_den // 2)
+    9-bit pitch index, plus ceil(l_den / 2). Computed once per (pitch
+    scale, l_den), so that a decode step reads no tensor on the host."""
+    return _reach_back_of(float(p.pitch_scale), p.l_den)
+
+
+@lru_cache(maxsize=None)
+def _reach_back_of(pitch_scale: float, l_den: int) -> int:
+    p_int, _ = _filter_params(SimpleNamespace(pitch_scale=pitch_scale),
+                              torch.arange(1 << 9, dtype=torch.int32))
+    return int(p_int.max()) + (l_den - l_den // 2)
 
 
 def ltpf_run(tab, st: LtpfState, x, nbits: int, active, pitch_index):

@@ -21,8 +21,6 @@ import torch
 from .. import _build
 from .ltpf import _blocked_filter_pass, _fir
 
-launches = 0  # kernel launches since the last reset
-
 
 def ltpf_both_passes_plain(p, xcat, hist_y, c_num_a, c_den_a, p_int_a,
                            c_num_b, c_den_b, p_int_b, fade_down, fadeB,
@@ -72,7 +70,6 @@ def ltpf_both_passes(p, xcat, hist_y, c_num_a, c_den_a, p_int_a, c_num_b, c_den_
                                           c_num_b, c_den_b, p_int_b, fade_down, fadeB,
                                           use_scratch, H, rb)
         raise ValueError(f"ltpf_both_passes: unsupported device {xcat.device}")
-    global launches
     nf, l_num, l_den = p.nf, p.l_num, p.l_den
     S = xcat.shape[0]
     index = xcat.get_device()
@@ -92,5 +89,4 @@ def ltpf_both_passes(p, xcat, hist_y, c_num_a, c_den_a, p_int_a, c_num_b, c_den_
     _build.launch("lc3t_ltpf_both_passes", index, *(t.data_ptr() for _, t, _, _ in args),
                   ya.data_ptr(), yb.data_ptr(), S, H, nf, 16 if nf % 16 == 0 else 15,
                   l_num, l_den, rb)
-    launches += 1
     return ya, yb

@@ -23,7 +23,6 @@ import torch
 from .. import _build
 from .. import tables as T
 
-launches = 0  # kernel launches since the last reset
 
 GAINS = np.zeros((4, 8), dtype=np.float32)  # searched gains per shape, zero-padded
 GAINS_N = (1, 3, 3, 7)
@@ -170,7 +169,6 @@ def sns_pvq(t2rot: torch.Tensor):
     if t2rot.dtype != torch.float32 or t2rot.dim() != 2 or t2rot.shape[1] != 16:
         raise ValueError(f"sns_pvq: t2rot must be float32 [S, 16], got {t2rot.dtype} "
                          f"{tuple(t2rot.shape)}")
-    global launches
     S = t2rot.shape[0]
     x = t2rot.contiguous()
     i32 = torch.int32
@@ -183,5 +181,4 @@ def sns_pvq(t2rot: torch.Tensor):
     _build.launch("lc3t_sns_pvq", x.get_device(), x.data_ptr(), y_sel.data_ptr(), y0s.data_ptr(),
                   xq_sel.data_ptr(), shape_j.data_ptr(), gind.data_ptr(), g_sel.data_ptr(),
                   _gains(x.device).data_ptr(), S)
-    launches += 1
     return y_sel, y0s, xq_sel, shape_j, gind, g_sel

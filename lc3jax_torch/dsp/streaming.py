@@ -3,9 +3,10 @@ lc3jax/dsp/streaming.py).
 
 JAX scans the frame axis with `lax.scan` in one compiled program; here each
 function is a Python loop over the frames, one step after another, that
-returns the per-frame outputs stacked on a leading [T] axis. The loop still
-issues every step's launches from the host: capturing it as one CUDA graph
-is a later change.
+returns the per-frame outputs stacked on a leading [T] axis. The
+`make_*` factories return it compiled (`compiled.CompiledStep`): the whole
+T-frame loop captured as one CUDA graph per T, taken from the input's
+shape, so that a chunk costs one replay, as JAX makes one dispatch a chunk.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from functools import partial
 
 import torch
 
+from ..compiled import CompiledStep
 from ..config import Lc3Config
 from .decoder import DecoderState, ParsedFrames, decode_step
 from .encoder import EncoderState, encode_step
@@ -73,17 +75,27 @@ def encode_bytes_frames(cfg: Lc3Config, nbytes: int, state: EncoderState, pcm):
     return state, torch.stack(out)
 
 
-def make_decode_frames(cfg: Lc3Config, nbits: int):
-    return partial(decode_frames, cfg, nbits)
+def make_decode_frames(cfg: Lc3Config, nbits: int, device="cuda") -> CompiledStep:
+    """decode_frames compiled: `step(state, frames [T, S, ...]) -> (state,
+    pcm [T, S, nf])`, the state donated (see dsp.decoder.make_decode_step)."""
+    return CompiledStep(partial(decode_frames, cfg, nbits), ("decode_frames", cfg, nbits), device)
 
 
-def make_encode_frames(cfg: Lc3Config, nbytes: int):
-    return partial(encode_frames, cfg, nbytes)
+def make_encode_frames(cfg: Lc3Config, nbytes: int, device="cuda") -> CompiledStep:
+    """encode_frames compiled: `step(state, pcm [T, S, nf]) -> (state, fields)`."""
+    return CompiledStep(partial(encode_frames, cfg, nbytes), ("encode_frames", cfg, nbytes),
+                        device)
 
 
-def make_decode_bytes_frames(cfg: Lc3Config, nbytes: int):
-    return partial(decode_bytes_frames, cfg, nbytes)
+def make_decode_bytes_frames(cfg: Lc3Config, nbytes: int, device="cuda") -> CompiledStep:
+    """decode_bytes_frames compiled: `step(state, payloads [T, S, nbytes]) ->
+    (state, pcm [T, S, nf])`."""
+    return CompiledStep(partial(decode_bytes_frames, cfg, nbytes),
+                        ("decode_bytes_frames", cfg, nbytes), device)
 
 
-def make_encode_bytes_frames(cfg: Lc3Config, nbytes: int):
-    return partial(encode_bytes_frames, cfg, nbytes)
+def make_encode_bytes_frames(cfg: Lc3Config, nbytes: int, device="cuda") -> CompiledStep:
+    """encode_bytes_frames compiled: `step(state, pcm [T, S, nf]) -> (state,
+    frames uint8 [T, S, nbytes])`."""
+    return CompiledStep(partial(encode_bytes_frames, cfg, nbytes),
+                        ("encode_bytes_frames", cfg, nbytes), device)

@@ -22,9 +22,6 @@ import torch
 
 from .. import _build
 
-autocorr_launches = 0  # kernel launches since the last reset
-analysis_launches = 0
-
 
 def _check(name, x, others):
     """x float32 [S, ne]; each (arg, tensor, shape, dtype) of others as given."""
@@ -65,7 +62,6 @@ def tns_autocorr(x: torch.Tensor, sub: torch.Tensor) -> torch.Tensor:
         if x.device.type == "cpu":
             return tns_autocorr_plain(x, sub)
         raise ValueError(f"tns_autocorr: unsupported device {x.device}")
-    global autocorr_launches
     S, ne = x.shape
     index = x.get_device()
     if (x.dtype != torch.float32 or sub.dtype != torch.int32 or sub.shape != (S, 2, 3, 2)
@@ -79,7 +75,6 @@ def tns_autocorr(x: torch.Tensor, sub: torch.Tensor) -> torch.Tensor:
         sub = sub.contiguous()
     out = x.new_empty((S, 2, 3, 9))  # x's type and device, without parsing them again
     _build.launch("lc3t_tns_autocorr", index, x.data_ptr(), sub.data_ptr(), out.data_ptr(), S, ne)
-    autocorr_launches += 1
     return out
 
 
@@ -149,11 +144,9 @@ def tns_analysis(x, bounds, rc_order, num_filters, rc_q):
                                ("rc_order", rc_order, (S, 2), i32),
                                ("num_filters", num_filters, (S,), i32),
                                ("rc_q", rc_q, (S, 16), torch.float32)])
-    global analysis_launches
     args = [t if t.is_contiguous() else t.contiguous()
             for t in (x, bounds, rc_order, num_filters, rc_q)]
     out = x.new_empty((S, ne))
     _build.launch("lc3t_tns_analysis", x.get_device(), *[t.data_ptr() for t in args],
                   out.data_ptr(), S, ne)
-    analysis_launches += 1
     return out

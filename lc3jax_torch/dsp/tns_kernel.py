@@ -13,8 +13,6 @@ import torch
 
 from .. import _build
 
-launches = 0  # kernel launches since the last reset
-
 
 def _operands(tab, bandwidth, rc_order, rc_i):
     bounds = tab.tns_bounds[bandwidth.long()]  # [S, 4] lo0, hi0, lo1, hi1
@@ -67,7 +65,6 @@ def tns_synthesis(tab, x, bandwidth, rc_order, rc_i):
         return tns_synthesis_plain(tab, x, bandwidth, rc_order, rc_i)
     if x.device.type != "cuda":
         raise ValueError(f"tns_synthesis: unsupported device {x.device}")
-    global launches
     S, ne = x.shape
     if x.dtype != torch.float32:
         raise ValueError(f"tns_synthesis: x must be float32, got {x.dtype}")
@@ -86,5 +83,4 @@ def tns_synthesis(tab, x, bandwidth, rc_order, rc_i):
     out = x.new_empty((S, ne))
     _build.launch("lc3t_tns_synthesis", x.get_device(), x.data_ptr(),
                   *[t.data_ptr() for t in operands], out.data_ptr(), S, ne)
-    launches += 1
     return out

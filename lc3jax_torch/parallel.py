@@ -26,8 +26,11 @@ operation crosses shards, just as JAX's program has no collective.
   ValueError, as `jax.device_put` does.
 - `make_sharded_*` return `step(state, inputs) -> (state, outputs)`, each a
   `Sharded`. Inputs not yet sharded on the mesh are sharded first (JAX's
-  `in_shardings`). The state passed in is donated (JAX's `donate_argnums`):
-  its shards are dropped, and using it again raises.
+  `in_shardings`). Each shard runs its own compiled step
+  (`compiled.CompiledStep`, one CUDA graph per shard and shapes, on the
+  shard's device), whose static state is the shard of the state returned.
+  The state passed in is donated (JAX's `donate_argnums`): its shards are
+  dropped, and using it again raises.
 - Each op of a shard's step follows its tensors to the shard's device, and
   `_build.launch` makes that card current around each kernel, so nothing
   here enters a device context.
@@ -39,21 +42,22 @@ this process's own devices with its rank and world, and
 them. Nothing on the step path calls a collective: the group only starts
 the processes together.
 
-One Python thread feeding N cards gains nothing: the steps are bound by the
-host's kernel launches (hundreds a decode step, thousands an encode step),
-and one thread issues every shard's launches in turn. The scale-out that
-scales is one process per card: `torchrun --nproc-per-node N` with
-`init_multihost()` and `multihost_stream_mesh()` in each process.
+One Python thread feeding N cards launches every shard's graph replay in
+turn; the scale-out that keeps a host thread per card is one process per
+card: `torchrun --nproc-per-node N` with `init_multihost()` and
+`multihost_stream_mesh()` in each process.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+from functools import partial
 
 import numpy as np
 import torch
 
+from .compiled import CompiledStep, leaves
 from .config import Lc3Config
 from .devices import resolve_device
 from .dsp.decoder import decode_step, decoder_init
@@ -99,22 +103,11 @@ def stream_mesh(devices=None) -> StreamMesh:
     return StreamMesh(devs)
 
 
-def tree_leaves(tree):
+def tree_leaves(tree) -> list:
     """Every leaf of a tree (dataclasses, dicts, lists, tuples, Sharded),
     depth first."""
-    if isinstance(tree, Sharded):
-        yield from tree_leaves(tree.shards)
-    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
-        for f in dataclasses.fields(tree):
-            yield from tree_leaves(getattr(tree, f.name))
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from tree_leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from tree_leaves(v)
-    else:
-        yield tree
+    return [x for leaf in leaves(tree)
+            for x in (tree_leaves(leaf.shards) if isinstance(leaf, Sharded) else [leaf])]
 
 
 def _place(chunk: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -207,40 +200,45 @@ def _on_mesh(mesh: StreamMesh, tree, axis: int) -> Sharded:
     return shard_streams(mesh, tree, axis)
 
 
-def _sharded_step(mesh: StreamMesh, step, in_axis: int = 0, out_axis: int = 0):
-    """`step(state, x) -> (state, out)` run once per shard of the mesh."""
+def _sharded_step(mesh: StreamMesh, fn, key, in_axis: int = 0, out_axis: int = 0):
+    """`fn(state, x) -> (state, out)` compiled once per shard of the mesh,
+    on the shard's device, and run once per shard."""
+    steps = [CompiledStep(fn, key, d) for d in mesh.devices]
 
     def run(state, inputs):
         state = _on_mesh(mesh, state, 0)
         inputs = _on_mesh(mesh, inputs, in_axis)
-        outs = [step(s, x) for s, x in zip(state.shards, inputs.shards)]
+        outs = [step(s, x) for step, s, x in zip(steps, state.shards, inputs.shards)]
         state._donate()
         return (Sharded([o[0] for o in outs], mesh, 0),
                 Sharded([o[1] for o in outs], mesh, out_axis))
 
+    run.steps = steps
     return run
 
 
 def make_sharded_decode_step(cfg: Lc3Config, nbits: int, mesh: StreamMesh):
     """Sharded `dsp.decoder.decode_step`: ParsedFrames [S, ...] -> PCM
     int16 [S, nf]."""
-    return _sharded_step(mesh, lambda st, fr: decode_step(cfg, nbits, st, fr))
+    return _sharded_step(mesh, partial(decode_step, cfg, nbits), ("decode_step", cfg, nbits))
 
 
 def make_sharded_encode_step(cfg: Lc3Config, nbytes: int, mesh: StreamMesh):
     """Sharded `dsp.encoder.encode_step`: int16 PCM [S, nf] -> the field dict."""
-    return _sharded_step(mesh, lambda st, x: encode_step(cfg, nbytes, st, x))
+    return _sharded_step(mesh, partial(encode_step, cfg, nbytes), ("encode_step", cfg, nbytes))
 
 
 def make_sharded_decode_frames(cfg: Lc3Config, nbits: int, mesh: StreamMesh):
     """Sharded frame-axis loop: ParsedFrames [T, S, ...] -> PCM [T, S, nf],
     the streams on axis 1."""
-    return _sharded_step(mesh, lambda st, fr: decode_frames(cfg, nbits, st, fr), 1, 1)
+    return _sharded_step(mesh, partial(decode_frames, cfg, nbits),
+                         ("decode_frames", cfg, nbits), 1, 1)
 
 
 def make_sharded_encode_frames(cfg: Lc3Config, nbytes: int, mesh: StreamMesh):
     """Sharded frame-axis loop: PCM [T, S, nf] -> fields [T, S, ...]."""
-    return _sharded_step(mesh, lambda st, x: encode_frames(cfg, nbytes, st, x), 1, 1)
+    return _sharded_step(mesh, partial(encode_frames, cfg, nbytes),
+                         ("encode_frames", cfg, nbytes), 1, 1)
 
 
 def make_sharded_decode_bytes_step(cfg: Lc3Config, nbytes: int, mesh: StreamMesh):
@@ -248,7 +246,8 @@ def make_sharded_decode_bytes_step(cfg: Lc3Config, nbytes: int, mesh: StreamMesh
     parse kernel and the DSP on each shard's device (the serving shape)."""
     from .coding.device import decode_bytes_step
 
-    return _sharded_step(mesh, lambda st, x: decode_bytes_step(cfg, nbytes, st, x))
+    return _sharded_step(mesh, partial(decode_bytes_step, cfg, nbytes),
+                         ("decode_bytes_step", cfg, nbytes))
 
 
 def make_sharded_encode_bytes_step(cfg: Lc3Config, nbytes: int, mesh: StreamMesh):
@@ -257,7 +256,8 @@ def make_sharded_encode_bytes_step(cfg: Lc3Config, nbytes: int, mesh: StreamMesh
     any number of streams, so a shard may hold any count."""
     from .coding.device import encode_bytes_step
 
-    return _sharded_step(mesh, lambda st, x: encode_bytes_step(cfg, nbytes, st, x))
+    return _sharded_step(mesh, partial(encode_bytes_step, cfg, nbytes),
+                         ("encode_bytes_step", cfg, nbytes))
 
 
 def _sharded_init(init, cfg: Lc3Config, n_streams: int, mesh: StreamMesh) -> Sharded:

@@ -9,6 +9,11 @@ CPU tests run the same code. On the card only `device_step_ms` records the
 host's ops too (it needs each step's host range): recording every eager
 op slows a loop that the host's launches bound.
 
+A replayed CUDA graph (`compiled.py`) shows its kernels to the profiler as
+eager launches do, one span each (chip_smoke.py phase 11 holds the
+kernels it sees in one replay to the eager step's launches), so these
+hooks time compiled steps too.
+
 On the card nothing here returns a silent 0: a profile that records no
 device activity is taken again, and a second empty one raises
 (`torch.profiler` has lost every launch of a window once). A
@@ -64,10 +69,19 @@ def _fence() -> None:
         torch.cuda.synchronize(i)
 
 
+def mark(name: str = ""):
+    """A `record_function` range that `marked_spans` reads: its device
+    activity is what starts inside the range on the host."""
+    from torch.profiler import record_function
+
+    return record_function(STEP_MARK + name)
+
+
 def _profile(run_fn, host: bool = False):
     """run_fn() under torch.profiler between two fences: (activity spans,
-    step-mark spans), each a sorted list of (start_us, end_us, name) on the
-    profiler's clock. The marks need the host's ops recorded (`host`)."""
+    mark spans), each a sorted list of (start_us, end_us, name) on the
+    profiler's clock, a mark's name without the STEP_MARK prefix. The marks
+    need the host's ops recorded (`host`)."""
     from torch.autograd import DeviceType
     from torch.profiler import profile
 
@@ -80,9 +94,9 @@ def _profile(run_fn, host: bool = False):
     spans, marks = [], []
     for e in prof.events():
         span = (e.time_range.start, e.time_range.end, e.name)
-        if e.name == STEP_MARK:  # the host's mark; its copy on the card's timeline is no work
+        if e.name.startswith(STEP_MARK):  # the host's mark; its copy on the card is no work
             if e.device_type == DeviceType.CPU:
-                marks.append(span)
+                marks.append((*span[:2], e.name[len(STEP_MARK):]))
         elif e.device_type == activity:
             spans.append(span)
     return sorted(spans), sorted(marks)
@@ -130,6 +144,48 @@ def device_loop_span_ms(run_fn) -> float:
     return (max(b for _, b, _ in spans) - spans[0][0]) / 1e3
 
 
+def marked_spans(run_fn, check=None) -> list:
+    """The device activity inside each `mark(name)` range that run_fn()
+    opens, under torch.profiler: one (name, spans) per range in the order
+    they opened, spans a sorted list of (start_us, end_us, name) that start
+    inside the range's host interval (so the range must wait for its work
+    before it closes: `torch.cuda.synchronize()`). Ranges do not nest. A
+    profile in which a range shows no device activity, or that fails
+    check(per_range), is taken once more; if that one fails too, this
+    raises."""
+
+    def per_range(spans, marks):
+        starts = [a for a, _, _ in marks]
+        out = [(name, []) for _, _, name in marks]
+        for span in spans:
+            i = bisect.bisect_right(starts, span[0]) - 1
+            if i >= 0 and span[0] < marks[i][1]:
+                out[i][1].append(span)
+        if not all(s for _, s in out) or (check is not None and not check(out)):
+            return None
+        return out
+
+    return _read_profile(run_fn, per_range, host=True)
+
+
+def call_spans(fn, calls: int, check=None) -> list:
+    """The device activity of each of `calls` calls of fn() under
+    torch.profiler, the card synchronised after each call: one sorted list
+    of (start_us, end_us, name) per call (`marked_spans`). A profile in
+    which a call shows no device activity, or that fails check(per_call),
+    is taken once more; if that one fails too, this raises."""
+
+    def run():
+        for _ in range(calls):
+            with mark():
+                fn()
+                _fence()
+
+    per = marked_spans(run, lambda per: len(per) == calls and (
+        check is None or check([s for _, s in per])))
+    return [s for _, s in per]
+
+
 def device_step_ms(step_fn, init_carry, step_args, steps: int = 10) -> float:
     """A step's device time in ms: the median over `steps` steps of one
     step's device busy time, the union of its kernel, copy and fill
@@ -138,32 +194,16 @@ def device_step_ms(step_fn, init_carry, step_args, steps: int = 10) -> float:
 
     Runs `carry, out = step_fn(carry, *step_args)` once to warm up, then
     `steps` times from the warm-up's carry under torch.profiler, the card
-    synchronised after each step so that no step's work overlaps another's.
-    A device span belongs to the step within whose host range it starts."""
-    from torch.profiler import record_function
-
+    synchronised after each step so that no step's work overlaps another's
+    (`call_spans`)."""
     carry, _ = step_fn(init_carry, *step_args)  # warm-up
     _fence()
 
-    def run():
+    def one():
         nonlocal carry
-        for _ in range(steps):
-            with record_function(STEP_MARK):
-                carry, _ = step_fn(carry, *step_args)
-                _fence()
+        carry, _ = step_fn(carry, *step_args)
 
-    def per_step_busy(spans, marks):
-        starts = [a for a, _, _ in marks]
-        per_step = [[] for _ in marks]
-        for span in spans:
-            i = bisect.bisect_right(starts, span[0]) - 1
-            if i >= 0:
-                per_step[i].append(span)
-        if len(marks) != steps or not all(per_step):
-            return None
-        return sorted(union_ms(s) for s in per_step)
-
-    busy = _read_profile(run, per_step_busy, host=True)
+    busy = sorted(union_ms(s) for s in call_spans(one, steps))
     return busy[len(busy) // 2]
 
 

@@ -5,6 +5,15 @@ device-pack modes).
 
 Both run on the card unless the caller passes device="cpu"; where no card
 is present, the default raises instead of carrying on on the CPU.
+
+Every step runs compiled (`compiled.StepCache`, lc3jax's `_get_step` and
+`_get_chunk_step`): one CUDA graph per (kind, nbytes[, T]) for the coder's
+S, captured at its first call and replayed after that, all of one coder's
+graphs on one static state, so the state carries across a change of
+nbytes. `state` is that static state: the next call overwrites it, and
+assigning a state copies it in. A result that stays on the card is a
+tensor of its own (the graph's output cloned once); one fetched to the host
+is read straight from the graph's output.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ import torch
 from .coding import host_pack
 from .coding.device import decode_bytes_step, decode_bytes_step_stats, encode_bytes_step
 from .coding.host_parse import HostParser
+from .compiled import StepCache
 from .config import Lc3Config
 from .convert import encoder_fields_to_numpy
 from .devices import resolve_device
@@ -50,10 +60,39 @@ class BatchDecoder:
         self.nbytes = nbytes
         self.device_parse = device_parse
         self.device = resolve_device(device)
-        self.state: DecoderState = decoder_init(cfg, n_streams, self.device)
+        self._steps = StepCache(self.device, decoder_init(cfg, n_streams, self.device))
         self._parser = None if device_parse else HostParser(cfg, self.device)
         self.metrics = CodecMetrics()
         self._frame_seconds = cfg.nf / cfg.fs
+
+    @property
+    def state(self) -> DecoderState:
+        """The decoder's live state, which every compiled step of this
+        decoder reads and updates in place: the next decode overwrites it
+        (clone it to keep a snapshot). Assigning a state of the same shapes
+        (a checkpoint's, on any device) copies it in."""
+        return self._steps.state
+
+    @state.setter
+    def state(self, value: DecoderState) -> None:
+        self._steps.state = value
+
+    def _step(self, kind: str, nbytes: int, T: int = 0):
+        """The compiled step of one kind for nbytes (and T frames): "stats"
+        the fused decode with the concealed-frame count, "fused" without it,
+        "parsed" decode_step on host-parsed fields, "chunk" the T-frame
+        fused loop."""
+        cfg = self.cfg
+        fn = {"stats": lambda st, x: decode_bytes_step_stats(cfg, nbytes, st, x),
+              "fused": lambda st, x: decode_bytes_step(cfg, nbytes, st, x),
+              "parsed": lambda st, fr: decode_step(cfg, nbytes * 8, st, fr),
+              "chunk": lambda st, x: decode_bytes_frames(cfg, nbytes, st, x)}[kind]
+        return self._steps.step((kind, nbytes, T), fn)
+
+    @property
+    def steps(self) -> dict:
+        """(kind, nbytes, T) -> the compiled step, for each one made so far."""
+        return self._steps.steps
 
     def _check(self, payloads) -> None:
         if payloads.ndim != 2 or payloads.shape[0] != self.n_streams:
@@ -67,9 +106,7 @@ class BatchDecoder:
         if not self.device_parse:
             raise ValueError("decode_tensor needs BatchDecoder(..., device_parse=True)")
         self._check(payloads)
-        self.state, pcm, n_bad = decode_bytes_step_stats(
-            self.cfg, payloads.shape[1], self.state, payloads
-        )
+        _, pcm, n_bad = self._step("stats", payloads.shape[1])(self.state, payloads)
         # the concealed-frame count keeps plc_rate observable on the fused path
         self.metrics.record_decode(self.n_streams, self._frame_seconds, n_bad=int(n_bad))
         return pcm
@@ -83,34 +120,46 @@ class BatchDecoder:
         return x.pin_memory().to(self.device, non_blocking=True)
 
     def _host_parse(self, payloads: np.ndarray):
-        """The C++ parse of one batch and its fields copied to the device:
-        (ParsedFrames, n_bad, nbytes). The copy does not sync; the parser
-        waits on its event before it writes that buffer set again."""
+        """The C++ parse of one batch into the parser's ring: (its buffer
+        set, n_bad, nbytes). The parser waits on a set's upload event before
+        it writes that set again."""
         self._check(payloads)
         n_bad = int(self._parser.parse(payloads)["bad_frame"].sum())
-        return self._parser.upload(), n_bad, payloads.shape[1]
+        return self._parser.last, n_bad, payloads.shape[1]
 
-    def _decode_untracked(self, payloads: np.ndarray) -> torch.Tensor:
+    def _decode_parsed(self, slot, n_bad: int, nbytes: int, fetch: bool = True):
+        """A parsed batch uploaded straight into the host-parse step's
+        static field buffers (no further copy), then decoded: numpy PCM
+        (fetch) or a tensor of its own."""
+        step = self._step("parsed", nbytes)
+        bufs = step.buffers()
+        frames = self._parser.upload(slot, into=bufs[0] if bufs else None)
+        _, pcm = (step.run if fetch else step)(self.state, frames)
+        self.metrics.record_decode(self.n_streams, self._frame_seconds, n_bad=n_bad)
+        return pcm.cpu().numpy() if fetch else pcm
+
+    def _decode_untracked(self, payloads: np.ndarray, fetch: bool = False):
         """The fused step without the concealed-frame count, so without a
-        sync: the PCM stays on the device."""
+        sync unless the PCM is fetched."""
         self._check(payloads)
         x = self._to_device(payloads)
-        self.state, pcm = decode_bytes_step(self.cfg, x.shape[1], self.state, x)
+        step = self._step("fused", x.shape[1])
+        _, pcm = (step.run if fetch else step)(self.state, x)
         self.metrics.record_decode(self.n_streams, self._frame_seconds)
-        return pcm
-
-    def _decode_parsed(self, frames, n_bad: int, nbytes: int) -> torch.Tensor:
-        self.state, pcm = decode_step(self.cfg, nbytes * 8, self.state, frames)
-        self.metrics.record_decode(self.n_streams, self._frame_seconds, n_bad=n_bad)
-        return pcm
+        return pcm.cpu().numpy() if fetch else pcm
 
     def decode(self, payloads: np.ndarray) -> np.ndarray:
         """payloads uint8 [S, nbytes] (host) -> int16 PCM [S, nf] (host);
         nbytes may differ per call (variable bitrate mid-stream, state
         preserved)."""
-        if self.device_parse:
-            return self.decode_tensor(self._to_device(payloads)).cpu().numpy()
-        return self._decode_parsed(*self._host_parse(payloads)).cpu().numpy()
+        if not self.device_parse:
+            return self._decode_parsed(*self._host_parse(payloads))
+        self._check(payloads)
+        _, pcm, n_bad = self._step("stats", payloads.shape[1]).run(
+            self.state, self._to_device(payloads))
+        out = pcm.cpu().numpy()
+        self.metrics.record_decode(self.n_streams, self._frame_seconds, n_bad=int(n_bad))
+        return out
 
     def decode_stream(self, payload_batches, fetch: bool = True, pipeline: bool = False,
                       chunk_frames: int = 0) -> list:
@@ -139,10 +188,7 @@ class BatchDecoder:
         elif pipeline:
             outs = self._decode_stream_pipelined(payload_batches, fetch)
         else:
-            outs = []
-            for batch in payload_batches:
-                pcm = self._decode_parsed(*self._host_parse(batch))
-                outs.append(pcm.cpu().numpy() if fetch else pcm)
+            outs = [self._decode_parsed(*self._host_parse(b), fetch) for b in payload_batches]
         if not fetch and outs and outs[-1].is_cuda:
             torch.cuda.synchronize(outs[-1].device)  # the last batch is computed
         return outs
@@ -152,9 +198,13 @@ class BatchDecoder:
         stop = threading.Event()
 
         def producer():
-            # any failure (the source, a bad shape, the copy) is forwarded to
-            # the consumer; the sentinel is put unconditionally so that the
-            # consumer never blocks for ever on q.get()
+            # the C++ parse only: the upload and the decode run on the
+            # consumer. The queue's bound keeps at most RING parsed sets not
+            # yet uploaded (two queued, one the consumer holds, one being
+            # parsed), so a set is parsed again only after its upload's
+            # event was recorded. Any failure (the source, a bad shape) is
+            # forwarded to the consumer; the sentinel is put unconditionally
+            # so that the consumer never blocks for ever on q.get()
             try:
                 for batch in payload_batches:
                     if stop.is_set():
@@ -173,8 +223,7 @@ class BatchDecoder:
                 if isinstance(item, BaseException):
                     err = item
                     continue  # drain to the sentinel, then join and raise
-                pcm = self._decode_parsed(*item)
-                outs.append(pcm.cpu().numpy() if fetch else pcm)
+                outs.append(self._decode_parsed(*item, fetch))
         finally:
             # if the decode failed, stop the producer and drain its queue so
             # that it reaches its sentinel and ends
@@ -192,13 +241,13 @@ class BatchDecoder:
         def flush(chunk):
             if len(chunk) == T:
                 x = self._to_device(np.stack(chunk))
-                self.state, pcm = decode_bytes_frames(self.cfg, x.shape[2], self.state, x)
+                step = self._step("chunk", x.shape[2], T)
+                _, pcm = (step.run if fetch else step)(self.state, x)
                 self.metrics.record_decode(self.n_streams * T, self._frame_seconds)
                 outs.extend(pcm.cpu().numpy() if fetch else pcm.unbind(0))
                 return
-            for b in chunk:  # a trailing partial chunk: batch by batch
-                pcm = self._decode_untracked(b)
-                outs.append(pcm.cpu().numpy() if fetch else pcm)
+            # a chunk closed early: batch by batch
+            outs.extend(self._decode_untracked(b, fetch) for b in chunk)
 
         buf: list = []
         for batch in payload_batches:
@@ -230,9 +279,32 @@ class BatchEncoder:
         self.nbytes = nbytes
         self.device_pack = device_pack
         self.device = resolve_device(device)
-        self.state: EncoderState = encoder_init(cfg, n_streams, self.device)
+        self._steps = StepCache(self.device, encoder_init(cfg, n_streams, self.device))
         self.metrics = CodecMetrics()
         self._frame_seconds = cfg.nf / cfg.fs
+
+    @property
+    def state(self) -> EncoderState:
+        """The encoder's live state, updated in place by every compiled step
+        (see BatchDecoder.state)."""
+        return self._steps.state
+
+    @state.setter
+    def state(self, value: EncoderState) -> None:
+        self._steps.state = value
+
+    def _step(self, kind: str, nbytes: int):
+        """The compiled step of one kind for nbytes: "fields" the DSP step
+        (encode_step), "bytes" the fused PCM-to-bytes step."""
+        cfg = self.cfg
+        fn = {"fields": lambda st, x: encode_step(cfg, nbytes, st, x),
+              "bytes": lambda st, x: encode_bytes_step(cfg, nbytes, st, x)}[kind]
+        return self._steps.step((kind, nbytes), fn)
+
+    @property
+    def steps(self) -> dict:
+        """(kind, nbytes) -> the compiled step, for each one made so far."""
+        return self._steps.steps
 
     def _check(self, pcm) -> None:
         if tuple(pcm.shape) != (self.n_streams, self.cfg.nf):
@@ -244,7 +316,7 @@ class BatchEncoder:
         fields, tensors on the same device (the names of encode_step)."""
         self._check(pcm)
         nbytes = self.nbytes if nbytes is None else nbytes
-        self.state, fields = encode_step(self.cfg, nbytes, self.state, pcm)
+        _, fields = self._step("fields", nbytes)(self.state, pcm)
         return fields
 
     def encode_tensor(self, pcm: torch.Tensor, nbytes: int | None = None) -> torch.Tensor:
@@ -255,7 +327,7 @@ class BatchEncoder:
             raise ValueError("encode_tensor needs BatchEncoder(..., device_pack=True)")
         self._check(pcm)
         nbytes = self.nbytes if nbytes is None else nbytes
-        self.state, payloads = encode_bytes_step(self.cfg, nbytes, self.state, pcm)
+        _, payloads = self._step("bytes", nbytes)(self.state, pcm)
         self.metrics.record_encode(self.n_streams, self._frame_seconds)
         return payloads
 
@@ -265,8 +337,10 @@ class BatchEncoder:
         encoder state does not depend on it)."""
         nbytes = self.nbytes if nbytes is None else nbytes
         x = torch.as_tensor(np.ascontiguousarray(pcm, np.int16)).to(self.device)
-        if self.device_pack:
-            return self.encode_tensor(x, nbytes).cpu().numpy()
-        fields = encoder_fields_to_numpy(self.encode_fields_tensor(x, nbytes))
+        self._check(x)
+        # the graph's outputs fetched to the host at once, not cloned
+        _, out = self._step("bytes" if self.device_pack else "fields", nbytes).run(self.state, x)
         self.metrics.record_encode(self.n_streams, self._frame_seconds)
-        return host_pack.pack_frames(self.cfg, fields, nbytes)
+        if self.device_pack:
+            return out.cpu().numpy()
+        return host_pack.pack_frames(self.cfg, encoder_fields_to_numpy(out), nbytes)

@@ -3,6 +3,7 @@ checkpoint either package writes loads in the other (lc3jax's states are
 only built here, no JAX program is compiled), and a restored state resumes
 bit-exact; plus the rejection cases of tests/test_streaming_checkpoint.py."""
 
+import copy
 import dataclasses
 
 import jax
@@ -56,7 +57,7 @@ def live(request, goldens):
     coder = _coder(kind)
     for x in xs[: SPLIT[kind]]:
         _step(coder, x)
-    state = coder.state
+    state = copy.deepcopy(coder.state)  # a snapshot: the coder's own state moves on
     outs = [_step(coder, x) for x in xs[SPLIT[kind]:]]
     return kind, xs, state, outs
 

@@ -47,6 +47,12 @@ mesh = parallel.stream_mesh(["cpu"] * 2)
 step = parallel.make_sharded_decode_bytes_step(cfg, 120, mesh)
 st, sharded = step(parallel.sharded_decoder_init(cfg, 2, mesh), g["payloads"][:2])
 assert np.array_equal(sharded.gather().numpy(), pcm)
+from lc3jax_torch.coding.host_parse import HostParser
+from lc3jax_torch.dsp.decoder import make_decode_step
+parser = HostParser(cfg, "cpu")
+parser.parse(g["payloads"][:2])
+st, compiled = make_decode_step(cfg, 120 * 8, "cpu")(decoder_init(cfg, 2, "cpu"), parser.upload())
+assert np.array_equal(compiled.numpy(), pcm)
 timer = profiling.StepTimer()
 with timer.measure(lambda: sharded):
     sharded.gather()
@@ -60,9 +66,9 @@ print("ok")
 
 def test_package_decodes_without_importing_jax():
     """A decode (fused and host-parse), a pipelined decode_stream, an encode
-    (host pack and fused), a checkpoint round trip and a decode sharded in
-    two with `parallel` and `profiling` imported, on the CPU, load no lc3jax
-    and no jax module."""
+    (host pack and fused), a checkpoint round trip, a decode sharded in two
+    with `parallel` and `profiling` imported and a `make_decode_step`
+    (`compiled`), on the CPU, load no lc3jax and no jax module."""
     res = subprocess.run([sys.executable, "-c", _CODEC_WITHOUT_JAX], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
@@ -90,15 +96,17 @@ def test_port_data_equals_jax_data():
 
 @pytest.mark.parametrize("entry", ["BatchDecoder", "BatchDecoder-host_parse", "BatchEncoder",
                                    "BatchEncoder-device_pack", "encoder_init", "decoder_init",
-                                   "stream_mesh", "sharded_decoder_init"])
+                                   "stream_mesh", "sharded_decoder_init", "make_decode_step",
+                                   "make_encode_step", "make_decode_bytes_frames"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Built without `device`, an entry point, state constructor or stream
     mesh asks for CUDA: where no card is present it raises rather than
     carrying on on the CPU."""
     from lc3jax_torch import serving
     from lc3jax_torch.config import FrameDuration, Lc3Config
-    from lc3jax_torch.dsp.decoder import decoder_init
-    from lc3jax_torch.dsp.encoder import encoder_init
+    from lc3jax_torch.dsp.decoder import decoder_init, make_decode_step
+    from lc3jax_torch.dsp.encoder import encoder_init, make_encode_step
+    from lc3jax_torch.dsp.streaming import make_decode_bytes_frames
     from lc3jax_torch.parallel import sharded_decoder_init, stream_mesh, tree_leaves
 
     mesh = lambda **kw: stream_mesh([kw["device"]] if kw else None)
@@ -114,6 +122,9 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
         "decoder_init": lambda **kw: decoder_init(cfg, 2, **kw),
         "stream_mesh": mesh,
         "sharded_decoder_init": lambda **kw: sharded_decoder_init(cfg, 2, mesh(**kw)),
+        "make_decode_step": lambda **kw: make_decode_step(cfg, 320, **kw),
+        "make_encode_step": lambda **kw: make_encode_step(cfg, 40, **kw),
+        "make_decode_bytes_frames": lambda **kw: make_decode_bytes_frames(cfg, 40, **kw),
     }[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Lc3Config.new(16000, FrameDuration.MS10)
@@ -122,6 +133,8 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
     built = make(device="cpu")
     if entry.startswith("Batch"):
         assert built.device.type == "cpu"
+    elif entry.startswith("make_"):
+        assert built.cache.device.type == "cpu"
     elif entry == "stream_mesh":
         assert built.devices == (torch.device("cpu"),)
     else:

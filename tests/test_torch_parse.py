@@ -19,6 +19,7 @@ from lc3jax.coding.host import parse_frames
 from lc3jax.config import FrameDuration as JFrameDuration
 from lc3jax.config import Lc3Config as JLc3Config
 from lc3jax.ref.encoder import Lc3Encoder
+from lc3jax_torch import _build
 from lc3jax_torch.coding import parse_kernel
 from lc3jax_torch.config import FrameDuration, Lc3Config
 from lc3jax_torch.coding.device import device_parse, device_parse_plain
@@ -93,9 +94,9 @@ def test_bad_frames_keep_side_fields_and_zero_the_rest():
 def test_device_parse_takes_plain_for_cpu(goldens):
     g = goldens("stream50")
     pl = torch.as_tensor(g["payloads"][:4])
-    before = parse_kernel.launches
+    before = _build.launches.copy()
     got = device_parse(CFG48, 120, pl)
-    assert parse_kernel.launches == before
+    assert _build.launches == before
     _assert_fields_equal(got, device_parse_plain(CFG48, 120, pl))
     with pytest.raises(ValueError, match="CUDA"):
         parse_kernel.parse_frames_cuda(CFG48, 120, pl)

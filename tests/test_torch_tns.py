@@ -20,6 +20,7 @@ from lc3jax.config import FrameDuration as JFrameDuration
 from lc3jax.config import Lc3Config as JLc3Config
 from lc3jax.dsp import decoder as JD
 from lc3jax.dsp.params import decoder_params
+from lc3jax_torch import _build
 from lc3jax_torch.coding.device import device_parse_plain
 from lc3jax_torch.config import FrameDuration, Lc3Config
 from lc3jax_torch.convert import decoder_tables, tns_sin_table
@@ -115,9 +116,9 @@ def test_tns_wrapper_takes_plain_for_cpu_and_refuses_other_devices():
     x, bw, ro, ri = _random_case(S=3, seed=4)
     tab = decoder_tables(CFG48, 1200)
     t = lambda a: torch.as_tensor(a)
-    before = tns_kernel.launches
+    before = _build.launches.copy()
     got = tns_synthesis(tab, t(x), t(bw), t(ro), t(ri))
-    assert tns_kernel.launches == before
+    assert _build.launches == before
     assert torch.equal(got, tns_synthesis_plain(tab, t(x), t(bw), t(ro), t(ri)))
     with pytest.raises(ValueError, match="unsupported device"):
         tns_synthesis(tab, t(x).to("meta"), t(bw), t(ro), t(ri))

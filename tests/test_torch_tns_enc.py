@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from lc3jax.ref.fp import seq_sum
+from lc3jax_torch import _build
 from lc3jax_torch.config import FrameDuration, Lc3Config
 from lc3jax_torch.convert import encoder_tables
 from lc3jax_torch.dsp import encoder as E
@@ -95,10 +96,10 @@ def test_tns_analysis_batch_matches_oracle_golden(goldens):
 def test_tns_wrappers_take_plain_for_cpu_and_refuse_other_devices(gold):
     x, sub = _t(gold["x"][:4]), _t(gold["sub"][:4])
     args = [a[:4] for a in _lattice_args(gold)]
-    before = (K.autocorr_launches, K.analysis_launches)
+    before = _build.launches.copy()
     assert torch.equal(K.tns_autocorr(x, sub), K.tns_autocorr_plain(x, sub))
     assert torch.equal(K.tns_analysis(*args), K.tns_analysis_plain(*args))
-    assert (K.autocorr_launches, K.analysis_launches) == before
+    assert _build.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         K.tns_autocorr(x.to("meta"), sub)
     with pytest.raises(ValueError, match="unsupported device"):

@@ -15,10 +15,17 @@ over the streams, after warm-up:
   wall step (the idle share is the rest);
 - device launches per step, and the eight names that take the most device
   time;
-- for the encoder, each stage of `encode_step` synchronised on its own
-  (host wall per step), and the host side after the DSP step: the copy of
-  the fields to the host and the C++ packer, each a median of `steps`
-  calls.
+- for the encoder, each stage of the eager `encode_step` synchronised on
+  its own: host wall per step, and device busy per step (the card's
+  intervals inside the stage's range: what a replayed graph of the step
+  spends there, less the gaps between its nodes); and the host side after
+  the DSP step: the
+  copy of the fields to the host and the C++ packer, each a median of
+  `steps` calls.
+
+The three serving steps run as replayed CUDA graphs (`compiled.py`); the
+same lines follow for the eager step functions (`decode_eager`,
+`encode_dsp_eager`, `encode_fused_eager`, from a fixed state).
 
 Prints one line per step kind and ends with one JSON object. Needs a card;
 without one it exits non-zero.
@@ -116,6 +123,42 @@ def encode_stages(fn, steps: int) -> dict:
     return {name: spent[name] / steps * 1e3 for name in ENCODE_STAGES}
 
 
+def encode_stage_device(fn, steps: int) -> dict:
+    """Device busy ms per step of each stage of the eager encode_step: each
+    stage in a `profiling.mark` range, synchronised before and after, so
+    that its device work lies inside its range; per stage, the union of the
+    card's intervals that start inside its ranges
+    (`profiling.marked_spans`: the kernels a replayed graph of the step
+    runs too, without the gaps the host leaves)."""
+    import torch
+
+    from lc3jax_torch import profiling
+    from lc3jax_torch.dsp import encoder as E
+
+    originals = {name: getattr(E, name) for name in ENCODE_STAGES}
+
+    def marked(name, orig):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            with profiling.mark(name):
+                out = orig(*a, **k)
+                torch.cuda.synchronize()
+            return out
+        return run
+
+    for name, orig in originals.items():
+        setattr(E, name, marked(name, orig))
+    try:
+        per = profiling.marked_spans(lambda: [fn() for _ in range(steps)])
+    finally:
+        for name, orig in originals.items():
+            setattr(E, name, orig)
+    spans = defaultdict(list)
+    for name, s in per:
+        spans[name] += s
+    return {name: profiling.union_ms(spans[name]) / steps for name in ENCODE_STAGES}
+
+
 def main() -> int:
     import torch
 
@@ -127,8 +170,11 @@ def main() -> int:
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 1
     from lc3jax_torch.coding import host_pack
+    from lc3jax_torch.coding.device import decode_bytes_step_stats, encode_bytes_step
     from lc3jax_torch.config import FrameDuration, Lc3Config
     from lc3jax_torch.convert import encoder_fields_to_numpy
+    from lc3jax_torch.dsp.decoder import decoder_init
+    from lc3jax_torch.dsp.encoder import encode_step, encoder_init
     from lc3jax_torch.serving import BatchDecoder, BatchEncoder
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -143,9 +189,13 @@ def main() -> int:
     dec = BatchDecoder(cfg, S, NBYTES, device="cuda")
     enc = BatchEncoder(cfg, S, NBYTES, device="cuda")
     fenc = BatchEncoder(cfg, S, NBYTES, device="cuda", device_pack=True)
+    st_d, st_e = decoder_init(cfg, S, dev), encoder_init(cfg, S, dev)
     steps_of = {"decode": lambda: dec.decode_tensor(pay),
                 "encode_dsp": lambda: enc.encode_fields_tensor(pcm),
-                "encode_fused": lambda: fenc.encode_tensor(pcm)}
+                "encode_fused": lambda: fenc.encode_tensor(pcm),
+                "decode_eager": lambda: decode_bytes_step_stats(cfg, NBYTES, st_d, pay),
+                "encode_dsp_eager": lambda: encode_step(cfg, NBYTES, st_e, pcm),
+                "encode_fused_eager": lambda: encode_bytes_step(cfg, NBYTES, st_e, pcm)}
     out = {"card": card, "streams": S, "steps": steps}
     for name, fn in steps_of.items():
         for _ in range(3):
@@ -157,10 +207,15 @@ def main() -> int:
               f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_ms'] / wall:.1f}%), "
               f"{prof['launches']:.0f} device launches/step; top: " + "; ".join(
                   f"{n} {ms:.4f} ms" for n, ms in prof["top"]), flush=True)
-    stages = encode_stages(steps_of["encode_dsp"], steps)
+    stages = encode_stages(steps_of["encode_dsp_eager"], steps)
     out["encode_stages_ms"] = stages
     print(f"[encode-stages] {card}, S={S}, each synchronised: " + "; ".join(
         f"{n} {ms:.3f} ms" for n, ms in stages.items()), flush=True)
+    stage_dev = encode_stage_device(steps_of["encode_dsp_eager"], steps)
+    out["encode_stages_device_ms"] = stage_dev
+    print(f"[encode-stages-device] {card}, S={S}, device busy per step: " + "; ".join(
+        f"{n} {ms:.3f} ms" for n, ms in sorted(stage_dev.items(), key=lambda kv: -kv[1]))
+        + f" (sum {sum(stage_dev.values()):.3f} ms)", flush=True)
     fields = enc.encode_fields_tensor(pcm)
     torch.cuda.synchronize()
     to_host = median_ms(lambda: encoder_fields_to_numpy(fields), steps)
