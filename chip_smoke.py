@@ -143,11 +143,18 @@ torch.profiler sees in a replay of every graph:
    with chunk_frames=2 across the changes and chunk_frames=12 over the
    bench's frames (against eager decode_bytes_frames), make_decode_step /
    make_encode_step (one a frame size, the state handed back and forth),
-   the encode DSP step, the fused encode and the sharded fused decode at
-   meshes ["cuda:0"] and ["cuda:0", "cuda:0"] (one a frame size); each key
-   captured once and then only replayed, no state copied on the serving
-   paths, launches counted; per graph (every serving graph, both
-   make_*_step graphs of each size, every shard's graph), the kernels
+   the encode DSP step, the fused encode, make_decode_bytes_step (one a
+   frame size) and the sharded fused decode at meshes ["cuda:0"] and
+   ["cuda:0", "cuda:0"] (one a frame size); each key captured once and
+   then only replayed, no state copied on the serving paths, launches
+   counted; two streams (shard_tile's streams 0-1023 and 1024-2047, S =
+   1024, T frames at 150 B) interleaved through one make_decode_step, one
+   make_encode_step, one make_decode_bytes_step and one sharded fused
+   decode at mesh ["cuda:0"], each stream equal to its own eager stream,
+   state included, after every frame, each step with two static states
+   and two graphs (captures, capture ms, pool MiB after each stream's
+   first call); per graph (every serving graph, both make_*_step and
+   make_decode_bytes_step graphs of each size, every shard's graph), the kernels
    torch.profiler sees in one replay equal to the eager step's launches
    and to the counts its capture recorded (which each replay adds to
    lc3jax_torch._build.launches), its nodes and its capture time; the graphs' pools (torch.cuda.memory_snapshot); then the eager
@@ -155,7 +162,18 @@ torch.profiler sees in a replay of every graph:
    DSP, fused encode; CUDA events and host wall, alternated, median
    [min-max] of 20) and decode_stream over 48 batches in each device-parse
    mode against the same loop of eager steps (host wall, 5 reps
-   alternated).
+   alternated);
+12. api: lc3jax_torch.api's buffer calculators at 48 kHz / 10 ms (the
+   published 27,564 bytes); a two-channel Lc3Encoder / Lc3Decoder over
+   stream50 at 120 B, channels called interleaved, launches counted:
+   channel 0's bytes equal the oracle's and its PCM within 1 LSB and
+   >= 100 dB, channel 1 decodes stream50 with a corrupt, a 10 B and a 0 B
+   frame within 1 LSB of the oracle (tests/goldens/torch_api.npz) with
+   those three concealed; decode_frame(24, ...) raises ValueError; the
+   parse kernel against its plain version at 0, 1, 2 and 3 B, S = 2048 and
+   1 (every field equal, every frame bad); a fused decode at S = 2048
+   through the 0 B batch (PCM within 1 LSB of the oracle, plc_frames
+   3 S); the facade's host wall a frame and channel.
 
 Then the card's line, one JSON line with the kernels (each with its event
 and device times and its bound: the larger of its bytes over 3.35 TB/s
@@ -1280,9 +1298,10 @@ def sharding_phase(card: str, cfg, bench, pcm5: np.ndarray, fused5: np.ndarray,
 def kernels_seen(fn, reps: int = 5) -> dict:
     """The launches of each of the eight kernels that torch.profiler sees in
     one call of fn (0 where it sees none), read per call over reps + 1
-    calls (lc3jax_torch.profiling.call_spans); the first call is not read
-    (a profile has lost the first launch of a replayed graph in it), and
-    the others must agree, or the profile is taken again."""
+    calls (lc3jax_torch.profiling.call_spans, each call between two edge
+    kernels on the card); the first call is not read (before the profile's
+    warm-up step, a profile lost the first launches of a replayed graph in
+    it), and the others must agree, or the profile is taken again."""
     import re
 
     from lc3jax_torch import profiling
@@ -1303,6 +1322,96 @@ def pool_bytes(pool) -> int:
                if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
 
 
+def two_streams(card: str, cfg, bench, took) -> None:
+    """Phase 11's two streams at S = 1024 (the bench content's streams
+    0-1023 and 1024-2047 of shard_tile, so that they differ) run
+    interleaved, frame by frame, through one make_decode_step, one
+    make_encode_step, one make_decode_bytes_step and one sharded fused
+    decode at mesh ["cuda:0"]: each stream's outputs and state torch.equal
+    to its own eager stream after every frame; each step copies each
+    stream's state in once, makes one static state slot and one graph a
+    stream; the captures' ms and the pools' MiB after the first stream's
+    graph and after the second's."""
+    import torch
+
+    from lc3jax_torch import parallel
+    from lc3jax_torch.coding.device import (decode_bytes_step, device_parse,
+                                            make_decode_bytes_step)
+    from lc3jax_torch.compiled import leaves, tree_map
+    from lc3jax_torch.dsp.decoder import decoder_init, make_decode_step
+    from lc3jax_torch.dsp.encoder import encode_step, encoder_init, make_encode_step
+
+    dev = torch.device("cuda", 0)
+    S, T = S_MAIN // 2, T_FRAMES
+    tile = shard_tile(S_MAIN)
+    streams = {k: tile[i * S:(i + 1) * S] for i, k in enumerate("ab")}
+    pay = {k: [torch.as_tensor(np.ascontiguousarray(bench["frames"][t, f]), device=dev)
+               for f in range(T)] for k, t in streams.items()}
+    pcm_in = {k: [torch.as_tensor(np.ascontiguousarray(bench["pcm_in"][t, f]), device=dev)
+                  for f in range(T)] for k, t in streams.items()}
+    snap = lambda st: tree_map(torch.clone, st)
+    ref = {}
+    for k in "ab":  # the eager streams, one at a time
+        sd, se, ref[k] = decoder_init(cfg, S, dev), encoder_init(cfg, S, dev), []
+        for f in range(T):
+            sd, pcm = decode_bytes_step(cfg, NBYTES, sd, pay[k][f])
+            se, fields = encode_step(cfg, NBYTES, se, pcm_in[k][f])
+            ref[k].append(((snap(sd), pcm), (snap(se), fields)))
+    mesh = parallel.stream_mesh(["cuda:0"])
+    sharded = parallel.make_sharded_decode_bytes_step(cfg, NBYTES, mesh)
+    paths = {
+        "make_decode_step": (make_decode_step(cfg, NBYTES * 8),
+                             lambda k, f: device_parse(cfg, NBYTES, pay[k][f]),
+                             lambda: decoder_init(cfg, S, dev), 0),
+        "make_encode_step": (make_encode_step(cfg, NBYTES), lambda k, f: pcm_in[k][f],
+                             lambda: encoder_init(cfg, S, dev), 1),
+        "make_decode_bytes_step": (make_decode_bytes_step(cfg, NBYTES),
+                                   lambda k, f: pay[k][f], lambda: decoder_init(cfg, S, dev),
+                                   0),
+        "sharded fused decode x1": (sharded, lambda k, f: parallel.shard_streams(
+            mesh, pay[k][f]), lambda: parallel.sharded_decoder_init(cfg, S, mesh), 0),
+    }
+    read = lambda t: t.gather(dev) if isinstance(t, parallel.Sharded) else t
+    # make_decode_step's parse runs eagerly before the step: the same counts
+    n_dec = {"parse": 2 * T, "tns_synthesis": 2 * T, "ltpf": 2 * T}
+    lines = []
+    for name, (step, arg, init, which) in paths.items():
+        inner = getattr(step, "steps", [step])[0]
+        pools = []
+
+        def run(step=step, arg=arg, init=init, which=which, inner=inner, pools=pools):
+            st = {k: init() for k in "ab"}
+            for f in range(T):
+                for k in "ab":
+                    st[k], out = step(st[k], arg(k, f))
+                    same(f"two streams, {name}, stream {k} frame {f}",
+                         (read(st[k]), read(out)), ref[k][f][which])
+                    if f == 0:
+                        pools.append(pool_bytes(inner.cache.pool))
+                if st["a"] is st["b"]:
+                    raise AssertionError(f"two streams, {name}: one state object")
+
+        expect = n_dec if which == 0 else {"sns_pvq": 2 * T, "tns_autocorr": 2 * T,
+                                           "tns_analysis": 2 * T,
+                                           "bitmodel_table_part": 4 * T}
+        _, n = counted(f"two streams, {name}", expect, run)
+        got = (inner.captures, inner.calls, inner.state_copies, len(inner.cache.states),
+               len(inner.graphs))
+        if got != (2, 2 * T, 2, 2, 2):
+            raise AssertionError(f"two streams, {name}: (captures, calls, state copies, "
+                                 f"static states, graphs) {got}, not (2, {2 * T}, 2, 2, 2)")
+        slot_mib = sum(t.numel() * t.element_size() for t in leaves(inner.cache.states[1])
+                       if torch.is_tensor(t)) / 2**20
+        lines.append(f"{name}: captures {inner.captures}, static states "
+                     f"{len(inner.cache.states)}, graphs {len(inner.graphs)}, capture ms "
+                     + "/".join(f"{g.capture_ms:.1f}" for g in inner.graphs)
+                     + f", pool MiB {pools[0] / 2**20:.1f} -> {pools[1] / 2**20:.1f}, "
+                     f"second static state {slot_mib:.1f} MiB (launches {n})")
+    log("compiled-two-streams", f"{card}, S={S} each, T={T}, {NBYTES} B, interleaved: each "
+        "stream = its own eager stream, state included, after every frame; " + "; ".join(lines)
+        + f" {took()}")
+
+
 def compiled_phase(card: str, cfg, bench) -> None:
     """Phase 11: every compiled path held torch.equal to its eager step
     function, outputs and state after every frame, at S = 2048 on the bench
@@ -1316,7 +1425,8 @@ def compiled_phase(card: str, cfg, bench) -> None:
 
     from lc3jax_torch import parallel
     from lc3jax_torch.coding.device import (decode_bytes_step, decode_bytes_step_stats,
-                                            device_parse, encode_bytes_step)
+                                            device_parse, encode_bytes_step,
+                                            make_decode_bytes_step)
     from lc3jax_torch.coding.host_parse import HostParser
     from lc3jax_torch.compiled import tree_map
     from lc3jax_torch.dsp.decoder import decode_step, decoder_init, make_decode_step
@@ -1457,6 +1567,23 @@ def compiled_phase(card: str, cfg, bench) -> None:
     lines.append("make_decode_step and make_encode_step (state copies at each switch: "
                  + ", ".join(f"{k[0]} {k[1]} B {s.state_copies}" for k, s in made.items()) + ")")
 
+    # make_decode_bytes_step, one a frame size, the state handed on
+    bsteps = {nb: make_decode_bytes_step(cfg, nb) for nb in (NBYTES, 100)}
+
+    def run_bytes():
+        sb = decoder_init(cfg, S, dev)
+        for f, nb in enumerate(plan):
+            sb, pcm = bsteps[nb](sb, pay[f])
+            same(f"make_decode_bytes_step frame {f}", (sb, pcm), (ref_dstate[f], ref_pcm[f]))
+
+    _, n = counted("compiled make_decode_bytes_step", dict(dec_n, parse=T), run_bytes)
+    if any((s.captures, s.calls, len(s.cache.states)) != (1, calls_of[nb], 1)
+           for nb, s in bsteps.items()):
+        raise AssertionError("make_decode_bytes_step: " + str(
+            {nb: (s.captures, s.calls, len(s.cache.states)) for nb, s in bsteps.items()}))
+    lines.append(f"make_decode_bytes_step (launches {n}, state copies "
+                 + ", ".join(f"{nb} B {s.state_copies}" for nb, s in bsteps.items()) + ")")
+
     # encode DSP and fused encode
     enc_n = {"sns_pvq": T, "tns_autocorr": T, "tns_analysis": T, "bitmodel_table_part": 2 * T}
     encoders = {}
@@ -1507,6 +1634,7 @@ def compiled_phase(card: str, cfg, bench) -> None:
     log("compiled", f"S={S} T={T}, nbytes {plan}, the corrupt frame included: every compiled "
         "path = its eager step, each output and the state after every frame (torch.equal), each "
         f"key captured once, no state copy in serving: " + "; ".join(lines) + f" {took()}")
+    two_streams(card, cfg, bench, took)
 
     # ---- per graph: the kernels the profiler sees in one replay, nodes, capture ms
     parser.parse(pay_np[0])
@@ -1534,6 +1662,10 @@ def compiled_phase(card: str, cfg, bench) -> None:
         f"make_encode_step {nb} B": (s, s.buffers(), {"sns_pvq": 1, "tns_autocorr": 1,
                                                       "tns_analysis": 1, "bitmodel_table_part": 2})
         for nb, s in esteps.items()})
+    graphs.update({
+        f"make_decode_bytes_step {nb} B": (s, s.buffers(),
+                                           {"parse": 1, "tns_synthesis": 1, "ltpf": 1})
+        for nb, s in bsteps.items()})
     graphs.update({
         f"sharded x{k} {nb} B shard {i}": (s, s.buffers(),
                                            {"parse": 1, "tns_synthesis": 1, "ltpf": 1})
@@ -1636,6 +1768,111 @@ def compiled_phase(card: str, cfg, bench) -> None:
         f"parse, eager loop and compiled decode_stream alternated, {STREAM_REPS} reps, median "
         "[min-max] ms host wall: " + "; ".join(
             f"{k} {w} {spread(v)} = {xrt(v):.1f}x realtime" for (k, w), v in walls.items())
+        + f" {took()}")
+
+
+def api_phase(card: str, cfg, s50) -> None:
+    """Phase 12: lc3jax_torch.api on the card. The three buffer calculators
+    at 48 kHz / 10 ms, one channel (decoder_ram_bytes = 27,564); a
+    two-channel Lc3Encoder / Lc3Decoder over stream50 at 120 B, the
+    channels called interleaved: channel 0 encodes stream50 to the
+    oracle's frames and decodes them within 1 LSB and at >= 100 dB of its
+    PCM, channel 1 decodes stream50 with a corrupt, a truncated (10 B) and
+    an empty frame within 1 LSB of the oracle (tests/goldens/torch_api.npz,
+    tools/gen_torch_api_goldens.py), those three concealed, the launch
+    counts zeroed before and read after; decode_frame(24, ...) raises
+    ValueError; the parse kernel at 0, 1, 2 and 3 B against its plain
+    version at S = 2048 and S = 1 (every field equal, every frame bad); a
+    fused decode at S = 2048 over channel 1's first 10 frames, the empty
+    batch included (PCM within 1 LSB of the oracle, plc_frames 3 S); the
+    facade's host wall per frame and channel."""
+    import torch
+
+    from lc3jax_torch import api
+    from lc3jax_torch.config import FrameDuration
+    from lc3jax_torch.serving import BatchDecoder
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    took = lambda: f"({time.perf_counter() - t0:.1f} s into the phase)"
+    ms10 = FrameDuration.MS10
+    calc = (api.decoder_calc_working_buffer_lengths(1, ms10, 48000),
+            api.decoder_ram_bytes(1, ms10, 48000),
+            api.encoder_calc_working_buffer_lengths(1, ms10, 48000))
+    if calc[1] != 27564:
+        raise AssertionError(f"api: decoder_ram_bytes {calc[1]}, not 27,564")
+
+    lossy = np.load(ROOT / "tests" / "goldens" / "torch_api.npz")
+    frames1 = [bytes(p[:n]) for p, n in zip(lossy["lossy_payloads"], lossy["lossy_nbytes"])]
+    T = len(frames1)
+    enc = api.Lc3Encoder(2, ms10, 48000)
+    dec = api.Lc3Decoder(2, ms10, 48000)
+    walls = {"encode_frame": [], "decode_frame": []}
+
+    def timed(kind, fn, *args):
+        w0 = time.perf_counter()
+        out = fn(*args)
+        walls[kind].append((time.perf_counter() - w0) * 1e3)
+        return out
+
+    def run():
+        pcm0, pcm1 = [], []
+        for f in range(T):
+            out = timed("encode_frame", enc.encode_frame, 0, s50["pcm_in"][f], 120)
+            if out != s50["payloads"][f].tobytes():
+                raise AssertionError(f"api: channel 0 frame {f} differs from the oracle's")
+            pcm0.append(timed("decode_frame", dec.decode_frame, 16, 0, out))
+            pcm1.append(timed("decode_frame", dec.decode_frame, 16, 1, frames1[f]))
+        return np.stack(pcm0), np.stack(pcm1)
+
+    (pcm0, pcm1), n = counted("api facade", {
+        "parse": 2 * T, "tns_synthesis": 2 * T, "ltpf": 2 * T, "sns_pvq": T,
+        "tns_autocorr": T, "tns_analysis": T, "bitmodel_table_part": 2 * T}, run)
+    env0 = check_envelope("channel 0", pcm0, s50["pcm_out"])
+    max1 = int(np.abs(pcm1.astype(np.int64) - lossy["lossy_pcm_out"]).max())
+    plc = (dec.channels[0].metrics.plc_frames, dec.channels[1].metrics.plc_frames)
+    if max1 > 1 or plc != (0, int(lossy["lossy_concealed"].sum())):
+        raise AssertionError(f"api: channel 1 max {max1} LSB from the oracle, plc_frames {plc}")
+    try:
+        dec.decode_frame(24, 0, s50["payloads"][0].tobytes())
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("api: decode_frame(24, ...) did not raise ValueError")
+
+    # the parse kernel on frames of 0-3 bytes, every field, S = 2048 and 1
+    rng = np.random.default_rng(12)
+    for nb in (0, 1, 2, 3):
+        for S in (S_MAIN, 1):
+            x = rng.integers(0, 256, (S, nb), dtype=np.uint8)
+            x[::7] = 255
+            want = parse_equal(f"{nb} B, S={S}", cfg, nb, torch.as_tensor(x, device=dev))
+            if not bool(want.bad_frame.all()):
+                raise AssertionError(f"parse: a {nb} B frame was not bad")
+
+    # a fused decode batch of 0 B at S = 2048, inside channel 1's stream
+    bd = BatchDecoder(cfg, S_MAIN, 120)
+    first = int(lossy["lossy_positions"].max()) + 1
+    for f in range(first):
+        batch = np.repeat(np.frombuffer(frames1[f], np.uint8)[None], S_MAIN, axis=0)
+        pcm = bd.decode(batch)
+        if np.abs(pcm.astype(np.int64) - lossy["lossy_pcm_out"][f]).max() > 1:
+            raise AssertionError(f"fused decode at S={S_MAIN}: frame {f} ({len(frames1[f])} B) "
+                                 "differs from the oracle by more than 1 LSB")
+    n_plc = int(lossy["lossy_concealed"][:first].sum()) * S_MAIN
+    if bd.metrics.plc_frames != n_plc or ("stats", 0, 0) not in bd.steps:
+        raise AssertionError(f"fused decode at S={S_MAIN}: plc_frames {bd.metrics.plc_frames}, "
+                             f"not {n_plc}")
+    med = {k: float(np.median(v[2:])) for k, v in walls.items()}  # the captures left out
+    log("api", f"{card}: decoder_calc_working_buffer_lengths {calc[0]}, decoder_ram_bytes "
+        f"{calc[1]}, encoder_calc_working_buffer_lengths {calc[2]} (48 kHz / 10 ms, 1 channel); "
+        f"2 channels interleaved over stream50 ({T} frames, 120 B; launches {n}): channel 0 "
+        f"bytes = the oracle's, {env0}; channel 1 (corrupt, 10 B and 0 B frames at "
+        f"{lossy['lossy_positions'].tolist()}) max {max1} LSB from the oracle, plc_frames "
+        f"{plc[1]}; decode_frame(24) raises ValueError; the parse kernel = plain at 0-3 B, "
+        f"S = {S_MAIN} and 1, every frame bad; fused decode at S={S_MAIN} with a 0 B batch = "
+        f"the oracle, plc_frames {bd.metrics.plc_frames}; host wall a frame and channel, "
+        "median of the run: " + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
         + f" {took()}")
 
 
@@ -2159,6 +2396,9 @@ def main() -> int:
 
     # ---- 11. compiled steps against the eager steps, counts, times
     compiled_phase(card, cfg, bench)
+
+    # ---- 12. the reference-parity facade, the calculators and short frames
+    api_phase(card, cfg, s50)
     log("done", f"{time.perf_counter() - t_start:.1f} s")
 
     names = {"ltpf": "ltpf_both_passes"}

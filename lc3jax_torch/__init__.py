@@ -37,12 +37,17 @@ Around them, the stream and file entry points of `lc3jax`:
   compare and inspect `.lc3` files, with its own `runner.wav`.
 
 Every step runs compiled (`compiled`, the counterpart of lc3jax's
-`jax.jit(..., donate_argnums=(0,))`): one CUDA graph per step and argument
-shapes, captured at its first call and replayed after that, the state
-updated in place in static buffers (`dsp.decoder.make_decode_step`,
-`dsp.encoder.make_encode_step`, `dsp.streaming.make_*_frames`, the
-serving step caches, the sharded steps); on the CPU the same plumbing
+`jax.jit(..., donate_argnums=(0,))`): one CUDA graph per step, argument
+shapes and live stream, captured at its first call and replayed after
+that, each stream's state updated in place in static buffers of its own
+(`dsp.decoder.make_decode_step`, `dsp.encoder.make_encode_step`,
+`coding.device.make_decode_bytes_step`, `dsp.streaming.make_*_frames`,
+the serving step caches, the sharded steps); on the CPU the same plumbing
 calls the step eagerly.
+
+`api` is the reference-parity facade of `lc3jax.api`: `Lc3Encoder` /
+`Lc3Decoder` with per-channel `encode_frame` / `decode_frame` (one serving
+coder at S = 1 a channel) and the reference's buffer calculators.
 
 Beyond one card, and around every path:
 
@@ -66,6 +71,6 @@ serving counters (`metrics.py`) and the WAV reader and writer
 (`runner/wav.py`).
 """
 
-from .config import FrameDuration, Lc3Config
+from .config import FrameDuration, Lc3Config, SamplingFrequency
 
-__all__ = ["FrameDuration", "Lc3Config"]
+__all__ = ["FrameDuration", "Lc3Config", "SamplingFrequency"]

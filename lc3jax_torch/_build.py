@@ -173,8 +173,8 @@ def launch(name: str, index: int, *args, tag: str | None = None) -> None:
 def record_on_stream(event, device) -> None:
     """Record `event` on the current stream of CUDA `device`: the stream on
     which a copy to that device, queued just before, runs (the host
-    parser's ring waits on it, coding/host_parse.py). With `launch` and
-    `fork`, the one place outside the kernels that names a stream."""
+    parser's ring waits on it, coding/host_parse.py). With `launch`, `fork`
+    and `edge`, the one place outside the kernels that names a stream."""
     import torch
 
     event.record(torch.cuda.current_stream(device))
@@ -190,3 +190,13 @@ def fork(device, stream=None):
         stream = torch.cuda.Stream(device=device)
     stream.wait_stream(torch.cuda.current_stream(device))
     return stream
+
+
+def edge(index: int) -> None:
+    """Launch the empty kernel of torch.cuda._sleep(0) on the current stream
+    of CUDA device `index`: the edge of a profiling.py range. It is no
+    kernel of the port, so `launches` does not count it."""
+    import torch
+
+    with torch.cuda.stream(torch.cuda.current_stream(index)):
+        torch.cuda._sleep(0)

@@ -9,6 +9,9 @@ compare-and-count over the cumfreq row, and the tuple loop is a Python loop
 vectorised over streams that stops at the batch-max lastnz. Corrupt frames
 set bad_frame (PLC) instead of raising; their fields follow device.py
 exactly, so kernel and plain version agree on every field of every frame.
+An empty frame (nbytes 0, a lost packet delivered as a zero-byte SDU) reads
+as zero bytes and overruns at its first read: every stream is concealed.
+`make_decode_bytes_step` compiles the fused step (`compiled.CompiledStep`).
 
 All range-coder arithmetic is u32 in the reference; here it is carried in
 int64, where none of it overflows.
@@ -20,12 +23,13 @@ decoder/arithmetic_codec.rs, decoder/spectral_noise_shaping.rs:155-199.
 from __future__ import annotations
 
 import math
-from functools import lru_cache
+from functools import lru_cache, partial
 
 import numpy as np
 import torch
 
 from .. import tables as T
+from ..compiled import CompiledStep
 from ..config import FrameDuration, Lc3Config
 
 from ..dsp.decoder import ParsedFrames
@@ -33,12 +37,20 @@ from ..dsp.decoder import ParsedFrames
 I64 = torch.int64
 
 
+def _readable(buf, nbytes: int):
+    """buf int64 [S, nbytes] as the readers gather from it: an empty frame
+    reads as one zero byte, so that no gather indexes an empty axis (every
+    read of it overruns, so the frame is bad, as in csrc/parse.cu)."""
+    return buf if nbytes else buf.new_zeros(buf.shape[0], 1)
+
+
 class _TailReader:
     """Vectorised backwards bit reader: value reads are 4-byte gathers."""
 
-    def __init__(self, buf):
-        self.buf = buf  # int64 [S, nbytes]
-        S, self.nbytes = buf.shape
+    def __init__(self, buf, nbytes: int | None = None):
+        self.nbytes = buf.shape[1] if nbytes is None else nbytes
+        self.buf = _readable(buf, self.nbytes)  # int64 [S, max(nbytes, 1)]
+        S = buf.shape[0]
         self.cursor = torch.zeros(S, dtype=I64, device=buf.device)
         self.error = torch.zeros(S, dtype=torch.bool, device=buf.device)
         self._j = torch.arange(4, device=buf.device)
@@ -49,7 +61,7 @@ class _TailReader:
         overrun check; `active` masks that check."""
         byte_index = self.cursor >> 3
         idx = (self.nbytes - 1 - byte_index)[:, None] - self._j
-        vals = torch.gather(self.buf, 1, idx.clamp(0, self.nbytes - 1))
+        vals = torch.gather(self.buf, 1, idx.clamp(0, self.buf.shape[1] - 1))
         vals = torch.where(idx >= 0, vals, 0)
         w = vals[:, 0] | (vals[:, 1] << 8) | (vals[:, 2] << 16) | (vals[:, 3] << 24)
         bit = self.cursor & 7
@@ -187,9 +199,9 @@ def _ac_tables(device):
 class _RangeDecoder:
     """Per-stream range decoder state with masked symbol decodes."""
 
-    def __init__(self, buf):
-        self.buf = buf
-        S, self.nbytes = buf.shape
+    def __init__(self, buf, nbytes: int):
+        self.buf = _readable(buf, nbytes)
+        S, self.nbytes = buf.shape[0], nbytes
         dev = buf.device
         self.head = torch.zeros(S, dtype=I64, device=dev)
         self.err = torch.zeros(S, dtype=torch.bool, device=dev)
@@ -199,7 +211,7 @@ class _RangeDecoder:
 
     def _pull(self, on):
         """Byte at the head cursor (clamped); advances where `on`."""
-        byte = torch.gather(self.buf, 1, self.head.clamp(0, self.nbytes - 1)[:, None])[:, 0]
+        byte = torch.gather(self.buf, 1, self.head.clamp(0, self.buf.shape[1] - 1)[:, None])[:, 0]
         over = self.head >= self.nbytes
         if on is None:
             self.err = self.err | over
@@ -229,11 +241,11 @@ class _RangeDecoder:
         return val
 
 
-def _tail_bit(buf, cursor, do, head, err):
-    """One backwards bit at `cursor` where `do` (buffer_reader.rs:104)."""
-    nbytes = buf.shape[1]
+def _tail_bit(buf, nbytes, cursor, do, head, err):
+    """One backwards bit at `cursor` where `do` (buffer_reader.rs:104); buf
+    as `_readable` gives it."""
     byte_index = cursor >> 3
-    idx = (nbytes - 1 - byte_index).clamp(0, nbytes - 1)
+    idx = (nbytes - 1 - byte_index).clamp(0, buf.shape[1] - 1)
     byte = torch.gather(buf, 1, idx[:, None])[:, 0]
     v = (((byte >> (cursor & 7)) & 1) != 0) & do
     err = err | (do & (nbytes - head - byte_index + 2 < 0))
@@ -248,15 +260,15 @@ def device_parse_plain(cfg: Lc3Config, nbytes: int, payloads) -> ParsedFrames:
     dev = payloads.device
     ne, fs_ind = cfg.ne, cfg.fs_ind
     nbits = nbytes * 8
-    buf = payloads.to(I64)
+    buf = _readable(payloads.to(I64), nbytes)
     tb = _ac_tables(dev)
 
-    r = _TailReader(buf)
+    r = _TailReader(buf, nbytes)
     side, bad = read_side_info(r, cfg, S)
     lastnz, lsb_mode = side["lastnz"], side["lsb_mode"]
 
     # ---------------- arithmetic decoder init (arithmetic_codec.rs:57-65)
-    ac = _RangeDecoder(buf)
+    ac = _RangeDecoder(buf, nbytes)
 
     # ---------------- TNS data (arithmetic_codec.rs:307-344)
     is_7p5 = cfg.n_ms == FrameDuration.MS7P5
@@ -298,8 +310,8 @@ def device_parse_plain(cfg: Lc3Config, nbytes: int, payloads) -> ParsedFrames:
             if not bool(going.any()):
                 break
             read_lsbs = going & (~lsb_mode | (lev > 0))
-            bit_a, cursor, ac.err = _tail_bit(buf, cursor, read_lsbs, ac.head, ac.err)
-            bit_b, cursor, ac.err = _tail_bit(buf, cursor, read_lsbs, ac.head, ac.err)
+            bit_a, cursor, ac.err = _tail_bit(buf, nbytes, cursor, read_lsbs, ac.head, ac.err)
+            bit_b, cursor, ac.err = _tail_bit(buf, nbytes, cursor, read_lsbs, ac.head, ac.err)
             xk = xk + (bit_a.to(I64) << lev)
             xk1 = xk1 + (bit_b.to(I64) << lev)
             lev = lev + going.to(I64)
@@ -308,9 +320,9 @@ def device_parse_plain(cfg: Lc3Config, nbytes: int, payloads) -> ParsedFrames:
         b = sym >> 2
         xk = xk + torch.where(in_range, a << lev, 0)
         xk1 = xk1 + torch.where(in_range, b << lev, 0)
-        sbit, cursor, ac.err = _tail_bit(buf, cursor, in_range & (xk > 0), ac.head, ac.err)
+        sbit, cursor, ac.err = _tail_bit(buf, nbytes, cursor, in_range & (xk > 0), ac.head, ac.err)
         xk = torch.where(sbit, -xk, xk)
-        sbit, cursor, ac.err = _tail_bit(buf, cursor, in_range & (xk1 > 0), ac.head, ac.err)
+        sbit, cursor, ac.err = _tail_bit(buf, nbytes, cursor, in_range & (xk1 > 0), ac.head, ac.err)
         xk1 = torch.where(sbit, -xk1, xk1)
         lev_c = torch.clamp(lev, max=3)
         t_next = torch.where(lev_c <= 1, 1 + (a + b) * (lev_c + 1), 12 + lev_c)
@@ -332,7 +344,7 @@ def device_parse_plain(cfg: Lc3Config, nbytes: int, payloads) -> ParsedFrames:
     can_read = nz & (bitpos < nres_avail[:, None]) & ~lsb_mode[:, None]
     read_cursor = cursor[:, None] + bitpos
     byte_index = read_cursor >> 3
-    bytes_g = torch.gather(buf, 1, (nbytes - 1 - byte_index).clamp(0, nbytes - 1))
+    bytes_g = torch.gather(buf, 1, (nbytes - 1 - byte_index).clamp(0, buf.shape[1] - 1))
     residual_bits = (((bytes_g >> (read_cursor & 7)) & 1) != 0) & can_read
     n_residual = torch.where(lsb_mode, 0, can_read.sum(1))
     err = err | (can_read & (nbytes - head[:, None] - byte_index + 2 < 0)).any(1)
@@ -348,12 +360,12 @@ def device_parse_plain(cfg: Lc3Config, nbytes: int, payloads) -> ParsedFrames:
         pair_on = lsb_on & (n < lastnz) & (save_lev[:, n // 2] > 0)
         for i in (n, n + 1):
             can = pair_on & (budget > 0)
-            b1, cur, lerr = _tail_bit(buf, cur, can, head, lerr)
+            b1, cur, lerr = _tail_bit(buf, nbytes, cur, can, head, lerr)
             budget = budget - can.to(I64)
             xv = x[:, i]
             hit = can & b1
             can2 = hit & (xv == 0) & (budget > 0)
-            b2, cur, lerr = _tail_bit(buf, cur, can2, head, lerr)
+            b2, cur, lerr = _tail_bit(buf, nbytes, cur, can2, head, lerr)
             budget = budget - can2.to(I64)
             new = torch.where(hit & (xv > 0), xv + 1, xv)
             new = torch.where(hit & (xv < 0), new - 1, new)
@@ -423,6 +435,22 @@ def decode_bytes_step(cfg: Lc3Config, nbytes: int, state, payloads):
 
     frames = device_parse(cfg, nbytes, payloads)
     return decode_step(cfg, nbytes * 8, state, frames)
+
+
+def make_decode_bytes_step(cfg: Lc3Config, nbytes: int, device="cuda") -> CompiledStep:
+    """decode_bytes_step compiled for (cfg, nbytes): `step(state, payloads)
+    -> (state, pcm)`, one CUDA graph per stream count S on `device`: the
+    fused counterpart of `dsp.decoder.make_decode_step` (lc3jax's
+    `jax.jit(partial(decode_bytes_step, cfg, nbytes), donate_argnums=(0,))`).
+
+    The state is donated: the state returned is the step's own buffers,
+    passing it back costs no copy and updates it in place; a state of your
+    own is copied in once, and passing it again raises. Another stream's
+    state gets static buffers of its own, so two streams through one step
+    stay independent. The PCM is a fresh tensor each call
+    (`compiled.CompiledStep`)."""
+    return CompiledStep(partial(decode_bytes_step, cfg, nbytes),
+                        ("decode_bytes_step", cfg, nbytes), device)
 
 
 def decode_bytes_step_stats(cfg: Lc3Config, nbytes: int, state, payloads):

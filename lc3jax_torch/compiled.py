@@ -28,27 +28,36 @@ of argument shapes. On a card, the first call with new shapes:
 
 Later calls copy their inputs into the static inputs and replay. An input
 that already is its static buffer is not copied (`coding.host_parse`
-uploads straight into them: `buffers`). A state argument that is the
-static state is not copied either: that is the counterpart of donation.
-Any other state is copied into the static state and marked donated, so
-that passing it to a compiled step again raises; a static state is never
-marked, so that a stream may go back and forth between the steps of
-several caches (one step a frame size, as lc3jax jits one a size): each
-copies the other's static state in. A step holds one stream's state: a
-second state fed to it is copied over the static state that the first
-was returned as. Run two streams with two steps. A warm-up, capture or
-replay that fails raises; nothing runs the step eagerly in its place.
+uploads straight into them: `buffers`).
+
+States follow lc3jax's donation: the state a step returns belongs to its
+caller until the caller passes it into a step again. Passed back to a step
+of the same cache, it is used in place (no copy) and returned again. Any
+other state is copied into one of the cache's static state slots and
+marked donated, so that passing it to a compiled step again raises. A slot
+is free once its caller no longer holds the state it was returned as: that
+state was dropped, or passed into a step of another cache. A foreign state
+takes a free slot of its shapes, or a new slot where every one is held,
+and each slot has graphs of its own (keyed by argument shapes and slot).
+So two streams through one step stay independent, each on its own static
+buffers, and a stream handed back and forth between the steps of several
+caches (one step a frame size, as lc3jax jits one a size) reuses the slot
+it left: the slots and graphs do not grow with the switches. A coder's own
+state (`StepCache(device, state)`, the serving coders') is pinned: it is
+its cache's one slot, never free, and passing it to another cache's step
+copies it without marking it donated. A warm-up, capture or replay that
+fails raises; nothing runs the step eagerly in its place.
 
 Outputs: `__call__` clones each tensor output once after the replay, so
 that successive results are distinct tensors that keep their values;
 `run` returns the graph's own output buffers, valid until the next call of
 a step of the same cache, for a caller that fetches them to the host at
-once. The returned state is the static state itself: the next call
-overwrites it.
+once. The returned state is a view of its slot's static buffers: the next
+call with it updates it in place.
 
-All steps of one `StepCache` (one coder) share its static state, one per
-state shape, so a stream's state carries across a change of frame size as
-it does in eager code, and one graph memory pool: their outputs are cloned
+All steps of one `StepCache` (one coder) share its slots, so a stream's
+state carries across a change of frame size as it does in eager code, and
+one graph memory pool: their outputs are cloned
 or fetched before the next replay, and replays are queued in order on one
 stream, so no graph reads what another wrote.
 
@@ -135,10 +144,11 @@ def _store(new, static) -> None:
             d.copy_(s)
 
 
-# the states donated to a compiled step, by id (an entry goes with its
-# state), and every cache's static states, which are never marked donated
+# the states donated to a compiled step, by id (an entry goes with its state)
 _DONATED: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
-_STATIC: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
+# every slot, by the id of its static state and of the state it last handed
+# out (an entry goes with its slot; a hit is checked against the slot)
+_SLOTS: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
 
 
 def _mark(marks: weakref.WeakValueDictionary, state) -> None:
@@ -152,27 +162,65 @@ def _marked(marks: weakref.WeakValueDictionary, state) -> bool:
     return marks.get(id(state)) is state
 
 
+class _Slot:
+    """One static state of a cache: the buffers its graphs are captured
+    on, and the state last handed to a caller (held weakly, so that a
+    state the caller dropped frees the slot; a pinned slot's is its static
+    state, held for good)."""
+
+    def __init__(self, cache: "StepCache", index: int, static, pinned: bool = False):
+        self.cache, self.index, self.static, self.pinned = cache, index, static, pinned
+        self.sig = _signature(static)
+        self._handed = (lambda: static) if pinned else None
+        _SLOTS[id(static)] = self
+
+    def held(self):
+        """The state a caller holds for this slot, or None: the slot is free."""
+        return None if self._handed is None else self._handed()
+
+    def owns(self, state) -> bool:
+        return state is self.static or state is self.held()
+
+    def release(self) -> None:
+        """The held state was passed into another cache's step: the slot is
+        free (and that state donated)."""
+        if not self.pinned:
+            self._handed = None
+
+    def hand(self):
+        """The state to return: the one held, else a new view of the static
+        buffers, which the slot then holds weakly."""
+        state = self.held()
+        if state is None:
+            state = tree_map(torch.Tensor.detach, self.static)
+            try:
+                self._handed = weakref.ref(state)
+            except TypeError:  # a tuple or other tree without weak references
+                self._handed = lambda: state
+            _SLOTS[id(state)] = self
+        return state
+
+
 # ------------------------------------------------------------------ steps
 
 
 class StepCache:
-    """One coder's compiled steps: the static state they share (one per
-    state shape), the graphs' memory pool and the capture stream.
+    """One coder's compiled steps: the static state slots they share, the
+    graphs' memory pool and the capture stream.
 
-    `state` (optional) is adopted as the static state for its shapes, as it
+    `state` (optional) is pinned as the cache's slot for its shapes, as it
     is: a serving coder hands in its fresh `decoder_init` / `encoder_init`
-    state. A state of other shapes is copied into a new static state at its
-    first use."""
+    state. Any other state is copied into a free slot of its shapes, or a
+    new one (see the module's docstring)."""
 
     def __init__(self, device, state=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.on_card = self.device.type == "cuda"
-        self._states: dict = {}
+        self._slots: list = []
         if state is not None:
-            self._states[_signature(state)] = state
-            _mark(_STATIC, state)
+            self._slots.append(_Slot(self, 0, state, pinned=True))
         self._steps: dict = {}
         self.pool = torch.cuda.graph_pool_handle() if self.on_card else None
         self._stream = None
@@ -190,11 +238,16 @@ class StepCache:
         return dict(self._steps)
 
     @property
+    def states(self) -> list:
+        """Each slot's static state, in the order the slots were made."""
+        return [s.static for s in self._slots]
+
+    @property
     def state(self):
         """The one static state (a serving coder's live state)."""
-        if len(self._states) != 1:
-            raise RuntimeError(f"{len(self._states)} static states; expected one")
-        return next(iter(self._states.values()))
+        if len(self._slots) != 1:
+            raise RuntimeError(f"{len(self._slots)} static states; expected one")
+        return self._slots[0].static
 
     @state.setter
     def state(self, value) -> None:
@@ -204,28 +257,33 @@ class StepCache:
                              "the coder's")
         _copy_into(value, static)
 
-    def adopt(self, state):
-        """The static state for `state`: itself where it is one, else a
-        static state of its shapes holding a copy of it (made at first use),
-        and `state` is marked donated, unless it is another cache's static
-        state."""
-        for s in self._states.values():
-            if s is state:
-                return s
+    def adopt(self, state) -> tuple["_Slot", bool]:
+        """(the slot that runs `state`, whether it was copied in): its own
+        slot where `state` is this cache's, else a free slot of its shapes
+        (a new one where none is free) holding a copy of it, and `state`
+        marked donated unless it is another cache's pinned or static state.
+        Another cache's held state frees that cache's slot."""
+        other = _SLOTS.get(id(state))
+        if other is not None and not other.owns(state):
+            other = None
+        if other is not None and other.cache is self:
+            return other, False
         if _marked(_DONATED, state):
             raise RuntimeError("this state was donated to a compiled step; use the state the "
                                "step returned")
         sig = _signature(state)
-        static = self._states.get(sig)
-        if static is None:
-            static = self._states[sig] = tree_map(
-                lambda t: t.detach().to(self.device, copy=True), state)
-            _mark(_STATIC, static)
+        slot = next((s for s in self._slots if s.sig == sig and s.held() is None), None)
+        if slot is None:
+            slot = _Slot(self, len(self._slots),
+                         tree_map(lambda t: t.detach().to(self.device, copy=True), state))
+            self._slots.append(slot)
         else:
-            _copy_into(state, static)
-        if not _marked(_STATIC, state):
+            _copy_into(state, slot.static)
+        if other is None or not (other.pinned or state is other.static):
             _mark(_DONATED, state)
-        return static
+        if other is not None:
+            other.release()
+        return slot, True
 
     def capture_stream(self):
         """The stream the cache's steps warm up and capture on, made to
@@ -290,15 +348,16 @@ class CompiledStep:
 
     def _run(self, state, inputs: tuple):
         cache = self.cache
-        static = cache.adopt(state)
-        self.state_copies += static is not state
-        sig = _signature(inputs)
-        g = self._graphs.get(sig)
+        slot, copied = cache.adopt(state)
+        self.state_copies += copied
+        static = slot.static
+        key = (_signature(inputs), slot.index)
+        g = self._graphs.get(key)
         if g is None:
             g = _Graph(tree_map(lambda t: t.detach().to(cache.device, copy=True), inputs))
             if cache.on_card:
                 self._capture(g, static)
-            self._graphs[sig] = g
+            self._graphs[key] = g
         else:
             _copy_into(inputs, g.inputs)
         self._last = g
@@ -310,7 +369,7 @@ class CompiledStep:
             _store(out[0], static)
             g.outputs = tuple(out[1:])
         self.calls += 1
-        return static, g.outputs
+        return slot.hand(), g.outputs
 
     def _capture(self, g: _Graph, static) -> None:
         cache = self.cache

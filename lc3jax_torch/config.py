@@ -70,3 +70,10 @@ class Lc3Config:
             nb = 64
             z = 3 * nf // 8
         return Lc3Config(fs_ind=fs_ind, fs=fs, ne=ne, n_ms=n_ms, nb=nb, nf=nf, z=z)
+
+
+ALL_CONFIGS = [
+    Lc3Config.new(fs, d)
+    for d in (FrameDuration.MS10, FrameDuration.MS7P5)
+    for fs in SamplingFrequency
+]

@@ -84,7 +84,11 @@ struct Frame {
   bool err = false;
   uint32_t low = 0, rng = 0;
 
+  // The byte at i, clamped to the payload; an empty payload (a lost
+  // packet delivered as a zero-byte frame) reads as zeros, and its first
+  // side-info read overruns, so the frame is concealed.
   __device__ int byte_at(int i) const {
+    if (nbytes < 1) return 0;
     i = i < 0 ? 0 : (i > nbytes - 1 ? nbytes - 1 : i);
     return buf[i];
   }
@@ -366,7 +370,7 @@ __global__ void __launch_bounds__(kThreads) parse_kernel(
         const int rcur = cursor + bitpos;
         const int byte_index = rcur >> 3;
         const int idx = nbytes - 1 - byte_index;
-        bit = (f.buf[idx < 0 ? 0 : idx] >> (rcur & 7)) & 1;
+        bit = (f.byte_at(idx) >> (rcur & 7)) & 1;
         if (nbytes - head - byte_index + 2 < 0) err = true;
       }
       if (k < ne) rr[k] = uint8_t(bit);
@@ -474,14 +478,14 @@ __global__ void __launch_bounds__(kThreads) parse_kernel(
 
 }  // namespace
 
-// payloads [S, nbytes] u8; tables: the table image (parse_kernel.py:
+// payloads [S, nbytes] u8 (nbytes may be 0: every frame is then bad); tables: the table image (parse_kernel.py:
 // table_image, kTableBytes); pool32: int32 [S * (ne + 44)], pool8: uint8
 // [S * (ne + 4)], the outputs laid out as parse_kernel.py:output_views
 // hands them out. ne a multiple of 4 (every LC3 geometry's is).
 extern "C" int lc3t_parse(const uint8_t* payloads, const uint8_t* tables, int* pool32,
                           uint8_t* pool8, int S, int nbytes, int ne, int fs_ind, int is_7p5,
                           void* stream) {
-  if (S < 1 || nbytes < 1 || ne < 4 || ne % 4 != 0 || fs_ind < 0 || fs_ind > 4)
+  if (S < 1 || nbytes < 0 || ne < 4 || ne % 4 != 0 || fs_ind < 0 || fs_ind > 4)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = kTableBytes + align16(kStreams * nbytes) +
                       sizeof(int) * (size_t)kStreams * ne + (size_t)kStreams * ne +

@@ -297,7 +297,9 @@ def make_decode_step(cfg: Lc3Config, nbits: int, device="cuda") -> CompiledStep:
     donate_argnums=(0,))`).
 
     The state is donated: the state returned is the step's own buffers,
-    passing it back costs no copy, and the next call overwrites it; a state
-    of your own is copied in once, and passing it again raises. The PCM is
-    a fresh tensor each call (`compiled.CompiledStep`)."""
+    passing it back costs no copy and updates it in place; a state of your
+    own is copied in once, and passing it again raises. Another stream's
+    state gets static buffers of its own, so two streams through one step
+    stay independent. The PCM is a fresh tensor each call
+    (`compiled.CompiledStep`)."""
     return CompiledStep(partial(decode_step, cfg, nbits), ("decode_step", cfg, nbits), device)

@@ -14,6 +14,20 @@ eager launches do, one span each (chip_smoke.py phase 11 holds the
 kernels it sees in one replay to the eager step's launches), so these
 hooks time compiled steps too.
 
+How a profile is read on the card, three guards against faults seen in
+chip_smoke.py phase 11 (NVIDIA H100 80GB HBM3, 700.00 W):
+- a `mark` range fences the cards and launches an empty edge kernel on
+  each at its start and at its end, and its activity is what starts
+  between its two edges on the card's own clock. Binning by the host's
+  range instead misplaced launches: the card's timestamps, moved onto the
+  host's clock, landed up to about a call's length before or after the
+  host range that launched them;
+- the recording starts after a warm-up step and a margin on the host
+  (`MARGIN_S`): without them a profile lost the first 19-27 spans of its
+  first call;
+- `LEAD_IN` edges go first, and only the last two a range are read: a
+  profile of about 41,000 records still lost its first 1-7 records.
+
 On the card nothing here returns a silent 0: a profile that records no
 device activity is taken again, and a second empty one raises
 (`torch.profiler` has lost every launch of a window once). A
@@ -31,9 +45,12 @@ import time
 
 import torch
 
+from . import _build
 from .parallel import tree_leaves
 
 STEP_MARK = "lc3jax_torch::step"
+MARGIN_S = 0.05  # the host's wait after a recording starts and before it stops
+LEAD_IN = 64  # edges on each card before run_fn, more than a profile lost first
 
 
 @contextlib.contextmanager
@@ -69,37 +86,94 @@ def _fence() -> None:
         torch.cuda.synchronize(i)
 
 
+def _edge() -> None:
+    """A range's edge on every card: wait for its queued work, then launch
+    the empty edge kernel (`EDGE_KERNEL`) on its current stream (nothing
+    on the CPU)."""
+    _fence()
+    for i in range(torch.cuda.device_count() if torch.cuda.is_available() else 0):
+        _build.edge(i)
+
+
+EDGE_KERNEL = "::spin_kernel("  # in the name of the kernel torch.cuda._sleep launches
+
+
+@contextlib.contextmanager
 def mark(name: str = ""):
-    """A `record_function` range that `marked_spans` reads: its device
-    activity is what starts inside the range on the host."""
+    """A `record_function` range that `marked_spans` reads. On the card it
+    waits for the work queued before it and for its own work before it
+    closes, and its device activity is what starts between its two edge
+    kernels; on the CPU it is the host's ops that start inside the range.
+    Ranges do not nest."""
     from torch.profiler import record_function
 
-    return record_function(STEP_MARK + name)
+    with record_function(STEP_MARK + name):
+        _edge()
+        yield
+        _edge()
 
 
 def _profile(run_fn, host: bool = False):
-    """run_fn() under torch.profiler between two fences: (activity spans,
-    mark spans), each a sorted list of (start_us, end_us, name) on the
-    profiler's clock, a mark's name without the STEP_MARK prefix. The marks
-    need the host's ops recorded (`host`)."""
+    """run_fn() under torch.profiler between two fences: (activity,
+    ranges). activity: the device activity, a sorted list of (start_us,
+    end_us, name) on the profiler's clock, edge kernels left out. ranges:
+    one (name, spans) per `mark(name)` range run_fn opened, in order, a
+    mark's name without the STEP_MARK prefix; None where a card did not
+    record two edges a range. The marks need the host's ops recorded
+    (`host`)."""
     from torch.autograd import DeviceType
-    from torch.profiler import profile
+    from torch.profiler import profile, schedule
 
     on_card = torch.cuda.is_available()
     _fence()
-    with profile(activities=_activities(host)) as prof:
+    # a warm-up step whose activity is not kept, margins, a lead-in (above)
+    with profile(activities=_activities(host),
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        _edge()
+        _fence()
+        prof.step()
+        time.sleep(MARGIN_S if on_card else 0.0)
+        for _ in range(LEAD_IN if on_card else 0):
+            _edge()
         run_fn()
         _fence()
+        time.sleep(MARGIN_S if on_card else 0.0)
     activity = DeviceType.CUDA if on_card else DeviceType.CPU
-    spans, marks = [], []
+    spans, marks, edges = [], [], {}
     for e in prof.events():
         span = (e.time_range.start, e.time_range.end, e.name)
+        if e.name.startswith("ProfilerStep"):  # the schedule's own step range
+            continue
         if e.name.startswith(STEP_MARK):  # the host's mark; its copy on the card is no work
             if e.device_type == DeviceType.CPU:
                 marks.append((*span[:2], e.name[len(STEP_MARK):]))
-        elif e.device_type == activity:
-            spans.append(span)
-    return sorted(spans), sorted(marks)
+        elif e.device_type != activity:
+            continue
+        elif on_card and EDGE_KERNEL in e.name:
+            edges.setdefault(e.device_index, []).append(span[0])
+        else:
+            spans.append((span, e.device_index))
+    marks.sort()
+    ranges = [(name, []) for _, _, name in marks]
+    if on_card and marks:
+        # two edges a range after what is left of the lead-in
+        edges = {d: sorted(t)[len(t) - 2 * len(marks):] for d, t in edges.items()
+                 if 2 * len(marks) <= len(t) <= 2 * len(marks) + LEAD_IN}
+        if any(d not in edges for _, d in spans):
+            return sorted(s for s, _ in spans), None
+        for span, d in spans:  # between a range's two edges on its own card
+            i = bisect.bisect_right(edges[d], span[0]) - 1
+            if i >= 0 and i % 2 == 0:
+                ranges[i // 2][1].append(span)
+    elif marks:
+        starts = [a for a, _, _ in marks]
+        for span, _ in spans:  # inside a range on the host
+            i = bisect.bisect_right(starts, span[0]) - 1
+            if i >= 0 and span[0] < marks[i][1]:
+                ranges[i][1].append(span)
+    for _, r in ranges:
+        r.sort()
+    return sorted(s for s, _ in spans), ranges
 
 
 def _read_profile(run_fn, read, host: bool = False):
@@ -147,23 +221,16 @@ def device_loop_span_ms(run_fn) -> float:
 def marked_spans(run_fn, check=None) -> list:
     """The device activity inside each `mark(name)` range that run_fn()
     opens, under torch.profiler: one (name, spans) per range in the order
-    they opened, spans a sorted list of (start_us, end_us, name) that start
-    inside the range's host interval (so the range must wait for its work
-    before it closes: `torch.cuda.synchronize()`). Ranges do not nest. A
-    profile in which a range shows no device activity, or that fails
-    check(per_range), is taken once more; if that one fails too, this
-    raises."""
+    they opened, spans a sorted list of (start_us, end_us, name) (`mark`
+    says which). Ranges do not nest. A profile in which a range shows no
+    device activity, or that fails check(per_range), is taken once more;
+    if that one fails too, this raises."""
 
-    def per_range(spans, marks):
-        starts = [a for a, _, _ in marks]
-        out = [(name, []) for _, _, name in marks]
-        for span in spans:
-            i = bisect.bisect_right(starts, span[0]) - 1
-            if i >= 0 and span[0] < marks[i][1]:
-                out[i][1].append(span)
-        if not all(s for _, s in out) or (check is not None and not check(out)):
+    def per_range(_, ranges):
+        if ranges is None or not all(s for _, s in ranges) or (
+                check is not None and not check(ranges)):
             return None
-        return out
+        return ranges
 
     return _read_profile(run_fn, per_range, host=True)
 
@@ -179,7 +246,6 @@ def call_spans(fn, calls: int, check=None) -> list:
         for _ in range(calls):
             with mark():
                 fn()
-                _fence()
 
     per = marked_spans(run, lambda per: len(per) == calls and (
         check is None or check([s for _, s in per])))

@@ -112,7 +112,10 @@ class BatchDecoder:
         return pcm
 
     def _to_device(self, payloads: np.ndarray) -> torch.Tensor:
-        x = torch.as_tensor(np.ascontiguousarray(payloads, np.uint8))
+        payloads = np.ascontiguousarray(payloads, np.uint8)
+        if not payloads.flags.writeable:  # np.frombuffer of bytes: torch warns on it
+            payloads = payloads.copy()
+        x = torch.as_tensor(payloads)
         if self.device.type != "cuda":
             return x
         # a pinned copy sent without a sync: PyTorch's pinned-memory cache

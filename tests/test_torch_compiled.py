@@ -21,7 +21,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from lc3jax_torch.checkpoint import load_state, save_state
 from lc3jax_torch.coding import host_pack
 from lc3jax_torch.coding.device import (decode_bytes_step, decode_bytes_step_stats,
-                                        encode_bytes_step)
+                                        encode_bytes_step, make_decode_bytes_step)
 from lc3jax_torch.coding.host_parse import HostParser
 from lc3jax_torch.compiled import CompiledStep, leaves
 from lc3jax_torch.config import FrameDuration, Lc3Config
@@ -99,12 +99,13 @@ def test_make_steps_equal_the_eager_steps(plan):
 @pytest.mark.parametrize("path", ["make_decode_step", "make_encode_step", "sharded"])
 def test_steps_of_each_frame_size_hand_the_state_back_and_forth(plan, path):
     """One step a frame size, the stream going 80 -> 150 -> 80 -> 150 -> 80
-    B (four switches): each step copies in the other's static state, which
-    is never marked donated, so no switch raises; outputs and state equal
-    the eager step's after every frame."""
+    -> 150 B (five switches): each step copies in the state the other
+    returned, which frees the other's slot and is donated, so no switch
+    raises; outputs and state equal the eager step's after every frame;
+    each step (each shard's) keeps one static state and one graph."""
     from lc3jax_torch import parallel
 
-    frames = [plan[0], plan[2], plan[1], plan[3], plan[0]]
+    frames = [plan[0], plan[2], plan[1], plan[3], plan[0], plan[2]]
     sizes = (80, 150)
     if path == "make_decode_step":
         steps = {nb: make_decode_step(CFG48, nb * 8, "cpu") for nb in sizes}
@@ -128,8 +129,90 @@ def test_steps_of_each_frame_size_hand_the_state_back_and_forth(plan, path):
         want, out_e = eager(want, nb, payloads, pcm)
         assert_same((read(got), read(out)), (want, out_e), f"{path} frame {f} ({nb} B)")
     shard_steps = lambda s: getattr(s, "steps", [s])
-    assert [(c.calls, c.captures) for nb in sizes for c in shard_steps(steps[nb])] == (
-        [(3, 0)] * len(shard_steps(steps[80])) + [(2, 0)] * len(shard_steps(steps[150])))
+    made = [c for nb in sizes for c in shard_steps(steps[nb])]
+    assert [(c.calls, c.captures) for c in made] == [(3, 0)] * len(made)
+    assert [(len(c.cache.states), len(c.graphs)) for c in made] == [(1, 1)] * len(made)
+
+
+def test_two_states_through_one_toy_step():
+    """An accumulator step fed two streams' states: the first state
+    returned keeps its values when the second stream runs (lc3jax's
+    donation), each stream continues from its own state without a copy,
+    and a donated state raises."""
+    step = CompiledStep(lambda st, x: (st + x, st * 2), "toy", "cpu")
+    one = torch.ones(2)
+    a, b = torch.zeros(2), torch.full((2,), 100.0)
+    a1, _ = step(a, one)
+    b1, _ = step(b, one)
+    assert a1 is not b1 and a1.tolist() == [1, 1] and b1.tolist() == [101, 101]
+    a2, out_a = step(a1, one)
+    b2, out_b = step(b1, one)
+    assert a2 is a1 and b2 is b1 and out_a.tolist() == [2, 2] and out_b.tolist() == [202, 202]
+    assert (a2.tolist(), b2.tolist(), step.state_copies) == ([2, 2], [102, 102], 2)
+    with pytest.raises(RuntimeError, match="donated"):
+        step(b, one)
+    del a1, a2  # a state dropped frees its slot: a third stream takes it
+    c1, _ = step(torch.full((2,), 7.0), one)
+    assert c1.tolist() == [8, 8] and b2.tolist() == [102, 102]
+    assert len(step.cache.states) == len(step.graphs) == 2
+
+
+def _two_stream_path(path, nb):
+    """(run(state, payloads, pcm), eager(state, payloads, pcm), init(),
+    eager_init(), read, steps) for one compiled path at nb bytes."""
+    from lc3jax_torch import parallel
+
+    ident = lambda t: t
+    if path == "make_decode_step":
+        step = make_decode_step(CFG48, nb * 8, "cpu")
+        return (lambda st, p, x: step(st, _parsed(nb, p)),
+                lambda st, p, x: decode_step(CFG48, nb * 8, st, _parsed(nb, p)),
+                lambda: decoder_init(CFG48, S, "cpu"), lambda: decoder_init(CFG48, S, "cpu"),
+                ident, [step])
+    if path == "make_encode_step":
+        step = make_encode_step(CFG48, nb, "cpu")
+        return (lambda st, p, x: step(st, torch.as_tensor(x)),
+                lambda st, p, x: encode_step(CFG48, nb, st, torch.as_tensor(x)),
+                lambda: encoder_init(CFG48, S, "cpu"), lambda: encoder_init(CFG48, S, "cpu"),
+                ident, [step])
+    if path == "make_decode_bytes_step":
+        step = make_decode_bytes_step(CFG48, nb, "cpu")
+        return (lambda st, p, x: step(st, torch.as_tensor(p)),
+                lambda st, p, x: decode_bytes_step(CFG48, nb, st, torch.as_tensor(p)),
+                lambda: decoder_init(CFG48, S, "cpu"), lambda: decoder_init(CFG48, S, "cpu"),
+                ident, [step])
+    mesh = parallel.stream_mesh(["cpu"] * int(path[-1]))
+    step = parallel.make_sharded_decode_bytes_step(CFG48, nb, mesh)
+    return (lambda st, p, x: step(st, parallel.shard_streams(mesh, p)),
+            lambda st, p, x: decode_bytes_step(CFG48, nb, st, torch.as_tensor(p)),
+            lambda: parallel.sharded_decoder_init(CFG48, S, mesh),
+            lambda: decoder_init(CFG48, S, "cpu"),
+            lambda t: t.gather() if isinstance(t, parallel.Sharded) else t, step.steps)
+
+
+@pytest.mark.parametrize("path", ["make_decode_step", "make_encode_step",
+                                  "make_decode_bytes_step", "sharded x1", "sharded x2"])
+def test_two_states_through_one_step(plan, path):
+    """Two streams' states fed interleaved to one compiled step (stream B:
+    stream A's batches with the streams swapped and the corrupt row
+    first): after every frame each stream's output and state equal its own
+    eager stream's, the states are distinct objects, and after the first
+    frame neither stream's state is copied in again."""
+    nb = 150
+    batches = [(p, x) for n, p, x, _ in plan if n == nb] * 2
+    run, eager, init, eager_init, read, steps = _two_stream_path(path, nb)
+    got = {"a": init(), "b": init()}
+    want = {"a": eager_init(), "b": eager_init()}
+    for f, (payloads, pcm) in enumerate(batches):
+        for k in ("a", "b"):
+            p, x = (payloads, pcm) if k == "a" else (payloads[::-1].copy(), pcm[::-1].copy())
+            got[k], out = run(got[k], p, x)
+            want[k], out_e = eager(want[k], p, x)
+            assert_same((read(got[k]), read(out)), (want[k], out_e), f"{path} {k} frame {f}")
+        assert got["a"] is not got["b"]
+    assert not torch.equal(leaves(read(got["a"]))[0], leaves(read(got["b"]))[0])
+    assert [(s.calls, s.state_copies, len(s.cache.states)) for s in steps] == (
+        [(2 * len(batches), 2, 2)] * len(steps))
 
 
 def _decode_path(path, plan):

@@ -53,6 +53,13 @@ parser = HostParser(cfg, "cpu")
 parser.parse(g["payloads"][:2])
 st, compiled = make_decode_step(cfg, 120 * 8, "cpu")(decoder_init(cfg, 2, "cpu"), parser.upload())
 assert np.array_equal(compiled.numpy(), pcm)
+from lc3jax_torch.api import Lc3Decoder, Lc3Encoder, decoder_ram_bytes
+frame = Lc3Encoder(1, lc3jax_torch.FrameDuration.MS10, 48000, device="cpu").encode_frame(
+    0, g["pcm_in"][0], 120)
+assert frame == g["payloads"][0].tobytes()
+assert Lc3Decoder(1, lc3jax_torch.FrameDuration.MS10, 48000, device="cpu").decode_frame(
+    16, 0, b"").shape == (480,)
+assert decoder_ram_bytes(1, lc3jax_torch.FrameDuration.MS10, 48000) == 27564
 timer = profiling.StepTimer()
 with timer.measure(lambda: sharded):
     sharded.gather()
@@ -67,8 +74,9 @@ print("ok")
 def test_package_decodes_without_importing_jax():
     """A decode (fused and host-parse), a pipelined decode_stream, an encode
     (host pack and fused), a checkpoint round trip, a decode sharded in two
-    with `parallel` and `profiling` imported and a `make_decode_step`
-    (`compiled`), on the CPU, load no lc3jax and no jax module."""
+    with `parallel` and `profiling` imported, a `make_decode_step`
+    (`compiled`) and the `api` facade, on the CPU, load no lc3jax and no
+    jax module."""
     res = subprocess.run([sys.executable, "-c", _CODEC_WITHOUT_JAX], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
@@ -84,6 +92,7 @@ def test_no_source_imports_lc3jax():
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if _IMPORT_LC3JAX.search(f.read_text())]
     assert len(files) > 10 and not offenders, offenders
+    assert ROOT / "lc3jax_torch" / "api.py" in files
 
 
 def test_port_data_equals_jax_data():
@@ -97,12 +106,14 @@ def test_port_data_equals_jax_data():
 @pytest.mark.parametrize("entry", ["BatchDecoder", "BatchDecoder-host_parse", "BatchEncoder",
                                    "BatchEncoder-device_pack", "encoder_init", "decoder_init",
                                    "stream_mesh", "sharded_decoder_init", "make_decode_step",
-                                   "make_encode_step", "make_decode_bytes_frames"])
+                                   "make_encode_step", "make_decode_bytes_frames",
+                                   "make_decode_bytes_step", "Lc3Encoder", "Lc3Decoder"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """Built without `device`, an entry point, state constructor or stream
     mesh asks for CUDA: where no card is present it raises rather than
     carrying on on the CPU."""
-    from lc3jax_torch import serving
+    from lc3jax_torch import api, serving
+    from lc3jax_torch.coding.device import make_decode_bytes_step
     from lc3jax_torch.config import FrameDuration, Lc3Config
     from lc3jax_torch.dsp.decoder import decoder_init, make_decode_step
     from lc3jax_torch.dsp.encoder import encoder_init, make_encode_step
@@ -125,13 +136,16 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
         "make_decode_step": lambda **kw: make_decode_step(cfg, 320, **kw),
         "make_encode_step": lambda **kw: make_encode_step(cfg, 40, **kw),
         "make_decode_bytes_frames": lambda **kw: make_decode_bytes_frames(cfg, 40, **kw),
+        "make_decode_bytes_step": lambda **kw: make_decode_bytes_step(cfg, 40, **kw),
+        "Lc3Encoder": lambda **kw: api.Lc3Encoder(2, FrameDuration.MS10, 16000, **kw),
+        "Lc3Decoder": lambda **kw: api.Lc3Decoder(2, FrameDuration.MS10, 16000, **kw),
     }[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Lc3Config.new(16000, FrameDuration.MS10)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make()
     built = make(device="cpu")
-    if entry.startswith("Batch"):
+    if entry.startswith(("Batch", "Lc3")):
         assert built.device.type == "cpu"
     elif entry.startswith("make_"):
         assert built.cache.device.type == "cpu"
