@@ -32,15 +32,25 @@ torch.profiler sees in a replay of every graph:
    and on the arguments the decode step gives it for the bench content;
 4. enc-kernels: the four encoder kernels against their plain versions, on
    random inputs and on the inputs the encoder gives them for the bench
-   content (SNS PVQ, TNS autocorrelation, TNS analysis, bit model: equal;
-   the autocorrelation also at S = 2047, the TNS analysis also on the
+   content (SNS PVQ, TNS coefficients, TNS analysis, bit model: equal,
+   every output; the TNS coefficients, lag sums to bits, also on
+   tns_coef_cases: S = 2047 and 1, 48 kHz / 7.5 ms, 16 kHz and 8 kHz /
+   10 ms, both LPC weightings (nbits on both sides of 480 and 360),
+   near_nyquist rows, bandwidths 0-4 (one filter and two), all-zero rows
+   (es = 0), tiny rows whose e_prod underflows, prediction gains on both
+   sides of 1.5 and 2.0; the TNS analysis also on the
    shapes of tns_cases and with filter bounds beyond LC3's tables, which
    overlap; the SNS PVQ also on pvq_cases: S = 2047 with ties on |x| in
    set B, across the set-A/set-B edge and on every lane, an all-zero set B,
    zeros and -0.0, errors tied between two candidates and every shape, and
    S = 1; the bit model also on bitmodel_cases: rate flags 0 and 512 at
    8 kHz / 10 ms, 16 kHz / 7.5 ms, 48 kHz / 7.5 ms and 48 kHz / 10 ms,
-   lastnz = 2 and = ne, ladder depths up to 14, S = 2047 and S = 1);
+   lastnz = 2 and = ne, ladder depths up to 14, S = 2047 and S = 1); then
+   the divisions: each divisor of the encoder's tables (EncoderTables.
+   divisors at every rate and frame duration: tools/division_check.py's
+   sites) divides a million values on the card as the CPU does, the TNS
+   quantiser takes rc = +-0.9829731 to the oracle's rc_i 15 and 1, and
+   the bandwidth detector its witness E_B to the oracle's bw_ind 0;
 4b. pack-kernels: the bit model with emit_pack against its plain version
    (and its table part against the one without) on the random, bench and
    bitmodel_cases inputs, and the pack kernel
@@ -62,7 +72,7 @@ torch.profiler sees in a replay of every graph:
    S = 1, same bound against the stored oracle PCM;
 7. encode: BatchEncoder(cuda).encode over the T frames of the bench
    content; every stream's bytes equal the oracle's; launch counts SNS =
-   autocorrelation = analysis = T, bit model = 2T;
+   TNS coefficients = analysis = T, bit model = 2T;
 7b. encode-fused: BatchEncoder(cuda, device_pack=True).encode_tensor over
    the same T frames, PCM to bytes on the card; every stream's bytes equal
    the oracle's; launch counts pack = T, bit model = 2T (T with emit_pack),
@@ -101,9 +111,14 @@ torch.profiler sees in a replay of every graph:
    beside each kernel's (and the library call's) per-call event time, its
    device time: the median duration of the kernel itself over 20 calls
    under torch.profiler, without the wrapper's host work. LTPF is timed on
-   the stress inputs and on the decode step's own arguments; the
-   autocorrelation and torch.bmm alternate call by call, median of 200
-   each. The TNS synthesis chain floor: the fewest cycles a line one of the
+   the stress inputs and on the decode step's own arguments; the TNS
+   coefficient kernel alternates call by call with torch.bmm (the lag sums
+   alone) and with the body it replaced (the lag sums alone, built by
+   tools/kernel_phases.py), median of 200 each; its chain floor: the
+   fewest cycles the lag folds and the epilogue of one (stream, filter)
+   take alone (the bench's first four streams, S = 1, an instrumented copy
+   that also holds the unquantised coefficients equal to tns_lpc_plain), at
+   the card's highest SM clock. The TNS synthesis chain floor: the fewest cycles a line one of the
    bench's streams takes alone (S = 1, an instrumented copy of the kernel:
    tools/kernel_phases.py), times the most active lines a stream of the
    decode step runs, at the card's highest SM clock; the SNS PVQ chain floor
@@ -202,11 +217,16 @@ S_MAIN = 2048
 NBYTES = 150
 T_FRAMES = 12
 REPS = 20
-PAIR_REPS = 200  # the autocorrelation against torch.bmm, a few µs apart
+PAIR_REPS = 200  # the TNS coefficients against torch.bmm and its old body, a few µs apart
 STREAM_REPS = 5  # decode_stream runs of 48 batches per mode, alternated
 CORPUS = ["48000_10ms_120", "48000_10ms_20", "48000_10ms_400", "44100_7.5ms_100",
           "16000_10ms_60", "8000_10ms_40"]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+# f32 operations of one (stream, filter) past the lag folds, counted from
+# tns_enc_kernel.tns_coefficients_plain (an asin as one): normalisation 56,
+# Levinson-Durbin 160, gate and weighting 34, inverse recursion 100,
+# quantisation 24
+COEF_EPILOGUE_OPS = 374
 F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores, published
 
 
@@ -456,6 +476,90 @@ def tns_cases(cfg, dev) -> dict:
     return out
 
 
+def tns_coef_cases(dev) -> dict:
+    """{label: tns_coefficients arguments} on the card from
+    tools/tns_cases.py's coef_rows: at
+    48 kHz / 10 ms with S = 2048, 2047 and 1, nbits 1200 and 400 (LPC
+    weighting off and on); 48 kHz / 7.5 ms at 900 and 300 bits; 16 kHz /
+    10 ms at 300 and 8 kHz / 10 ms at 600 bits. Fails unless the cases
+    reach what coef_rows names (prediction gains on both sides of 1.5 and
+    2.0, es = 0, e_prod underflowing, both filters) and no row of them
+    gives a NaN reflection coefficient (outside the oracle's domain: its
+    int() raises; there are none to leave out)."""
+    import torch
+
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.convert import encoder_tables
+    from lc3jax_torch.dsp import tns_enc_kernel as K
+    from tns_cases import coef_rows
+
+    c48 = Lc3Config.new(48000, FrameDuration.MS10)
+    out = {}
+    for label, c, nb, S, seed in (("48k/10ms 1200b", c48, 1200, S_MAIN, 40),
+                                  ("48k/10ms 400b", c48, 400, S_MAIN, 41),
+                                  (f"48k/10ms 400b S={S_MAIN - 1}", c48, 400, S_MAIN - 1, 42),
+                                  ("48k/10ms 400b S=1", c48, 400, 1, 43),
+                                  ("48k/7.5ms 900b", Lc3Config.new(48000, FrameDuration.MS7P5), 900,
+                                   S_MAIN, 44),
+                                  ("48k/7.5ms 300b", Lc3Config.new(48000, FrameDuration.MS7P5), 300,
+                                   S_MAIN, 45),
+                                  ("16k/10ms 300b", Lc3Config.new(16000, FrameDuration.MS10), 300,
+                                   S_MAIN, 46),
+                                  ("8k/10ms 600b", Lc3Config.new(8000, FrameDuration.MS10), 600,
+                                   S_MAIN, 47)):
+        x, bw, nn = (torch.as_tensor(a, device=dev) for a in coef_rows(c, S, seed))
+        lpc = int(nb < (480 if c.n_ms == FrameDuration.MS10 else 360))
+        tab = encoder_tables(c, nb, dev)
+        out[label] = (tab, x, bw, nn, lpc)
+        ac = K.tns_autocorr_plain(x, tab.tns_sub[bw.long()])
+        rc, pg = K.tns_lpc_plain(tab, ac, nn, lpc)
+        if bool(rc.isnan().any()):
+            raise AssertionError(f"tns_coef_cases {label}: a NaN reflection coefficient")
+        if S == S_MAIN:
+            on = pg[:, 0][~nn]
+            es = ac[..., 0]
+            reached = [bool(((on > 1.0) & (on < 1.5)).any()), bool(((on > 1.5) & (on < 2.0)).any()),
+                       bool((on > 2.0).any()), bool((es == 0).all(2).any()),
+                       bool(((es.prod(2) == 0) & (es != 0).all(2)).any()),
+                       c.fs_ind < 3 or bool((bw >= 3).any())]
+            if not all(reached):
+                raise AssertionError(f"tns_coef_cases {label}: cases not reached {reached}")
+    return out
+
+
+def division_phase(card: str, dev) -> str:
+    """Each divisor of the encoder's tables (EncoderTables.divisors at every
+    rate and frame duration: tools/division_check.py's sites) against the
+    CPU's division of the same values by the Python float; the TNS
+    quantiser on the witness rc = +-0.9829731 (the oracle's rc_i: 15 and
+    1) and the bandwidth detector on its witness E_B (the oracle's bw_ind:
+    0), on the card."""
+    import torch
+
+    import division_check
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.convert import encoder_tables
+    from lc3jax_torch.dsp import tns_enc_kernel
+    from lc3jax_torch.dsp.encoder import bandwidth_detect
+
+    rows = division_check.site_rows(dev)
+    bad = [label for label, _, n in rows if n]
+    if bad:
+        raise AssertionError(f"division: the card's division by the tables' divisor differs from "
+                             f"the CPU's at {bad}")
+    rc = torch.tensor(list(division_check.WITNESS), dtype=torch.float32, device=dev)
+    t = encoder_tables(Lc3Config.new(48000, FrameDuration.MS10), 1200, dev)
+    got = tns_enc_kernel.tns_quantise_plain(t, rc).tolist()
+    if got != list(division_check.WITNESS.values()):
+        raise AssertionError(f"division: the TNS quantiser takes the witness to rc_i {got}")
+    bw = int(bandwidth_detect(t, torch.as_tensor(division_check.bandwidth_witness(), device=dev))[0][0])
+    if bw != division_check.BW_WITNESS_IND:
+        raise AssertionError(f"division: the bandwidth detector takes its witness to bw_ind {bw}")
+    return (f"{card}: every site divides as the CPU on {division_check.N} values with the tables' "
+            f"divisors (with a Python float the card differed at " + ", ".join(
+                f"{label} {n}" for label, n, _ in rows) + f"); witness rc_i {got}, witness bw_ind {bw}")
+
+
 def overlapping_bounds(S: int, ne: int, seed: int) -> np.ndarray:
     """int32 [S, 2, 2] TNS filter bounds beyond LC3's tables, which give
     adjacent filters: filter 1 inside filter 0, filter 0 inside filter 1,
@@ -587,7 +691,7 @@ def capture_kernel_inputs(cfg, pcm):
     from lc3jax_torch.dsp.encoder import encode_step, encoder_init
 
     seen = {}
-    spies = [(sns_kernel, "sns_pvq"), (tns_enc_kernel, "tns_autocorr"),
+    spies = [(sns_kernel, "sns_pvq"), (tns_enc_kernel, "tns_coefficients"),
              (tns_enc_kernel, "tns_analysis"), (bitmodel_kernel, "bitmodel_table_part")]
     originals = [getattr(m, n) for m, n in spies]
     for (m, n), orig in zip(spies, originals):
@@ -669,8 +773,8 @@ KERNELS = {
     "ltpf": ("lc3t_ltpf_both_passes", "ltpf_kernel", "ltpf.cu",
              "lc3jax/dsp/pallas_ltpf.py:122"),
     "sns_pvq": ("lc3t_sns_pvq", "sns_pvq_kernel", "sns_pvq.cu", "lc3jax/dsp/pallas_sns.py:199"),
-    "tns_autocorr": ("lc3t_tns_autocorr", "tns_autocorr_kernel", "tns_autocorr.cu",
-                     "lc3jax/dsp/pallas_tns.py:158"),
+    "tns_coefficients": ("lc3t_tns_coefficients", "tns_coefficients_kernel", "tns_coefficients.cu",
+                         "lc3jax/dsp/pallas_tns.py:158"),
     "tns_analysis": ("lc3t_tns_analysis", "tns_analysis_kernel", "tns_analysis.cu",
                      "lc3jax/dsp/pallas_tns.py:190"),
     "bitmodel_table_part": ("lc3t_bitmodel", "bitmodel_kernel", "bitmodel.cu",
@@ -895,7 +999,7 @@ def serving_phase(card: str, cfg, bench, corpus, cp, pcm5: np.ndarray) -> dict:
         Path(f["oracle.lc3"]).write_bytes(encoded.transpose(1, 0, 2).tobytes())
         Path(f["frames.lc3"]).write_bytes(frames[:, :T].transpose(1, 0, 2).tobytes())
         Path(f["mono.lc3"]).write_bytes(frames[2, :T].tobytes())
-        enc_counts = {"sns_pvq": T, "tns_autocorr": T, "tns_analysis": T,
+        enc_counts = {"sns_pvq": T, "tns_coefficients": T, "tns_analysis": T,
                       "bitmodel_table_part": 2 * T}
         text = io.StringIO()
         with contextlib.redirect_stdout(text):
@@ -1037,7 +1141,7 @@ def shard_worker(out: str) -> int:
 
     T = T_FRAMES
     (pcm, frames), counts = counted(f"rank {rank}", {
-        "parse": T, "tns_synthesis": T, "ltpf": T, "sns_pvq": T, "tns_autocorr": T,
+        "parse": T, "tns_synthesis": T, "ltpf": T, "sns_pvq": T, "tns_coefficients": T,
         "tns_analysis": T, "bitmodel_table_part": 2 * T, "pack": T}, run)
     np.savez(out, pcm=pcm, frames=frames, counts=json.dumps(counts))
     torch.distributed.destroy_process_group()
@@ -1152,7 +1256,7 @@ def sharding_phase(card: str, cfg, bench, pcm5: np.ndarray, fused5: np.ndarray,
         n = mesh.size
         label = f"mesh x{n}"
         dec_n = {"tns_synthesis": n * T, "ltpf": n * T}
-        enc_n = {"sns_pvq": n * T, "tns_autocorr": n * T, "tns_analysis": n * T,
+        enc_n = {"sns_pvq": n * T, "tns_coefficients": n * T, "tns_analysis": n * T,
                  "bitmodel_table_part": 2 * n * T}
 
         def fused_decode():
@@ -1391,7 +1495,7 @@ def two_streams(card: str, cfg, bench, took) -> None:
                 if st["a"] is st["b"]:
                     raise AssertionError(f"two streams, {name}: one state object")
 
-        expect = n_dec if which == 0 else {"sns_pvq": 2 * T, "tns_autocorr": 2 * T,
+        expect = n_dec if which == 0 else {"sns_pvq": 2 * T, "tns_coefficients": 2 * T,
                                            "tns_analysis": 2 * T,
                                            "bitmodel_table_part": 4 * T}
         _, n = counted(f"two streams, {name}", expect, run)
@@ -1585,7 +1689,7 @@ def compiled_phase(card: str, cfg, bench) -> None:
                  + ", ".join(f"{nb} B {s.state_copies}" for nb, s in bsteps.items()) + ")")
 
     # encode DSP and fused encode
-    enc_n = {"sns_pvq": T, "tns_autocorr": T, "tns_analysis": T, "bitmodel_table_part": 2 * T}
+    enc_n = {"sns_pvq": T, "tns_coefficients": T, "tns_analysis": T, "bitmodel_table_part": 2 * T}
     encoders = {}
     for fused in (False, True):
         e = encoders[fused] = BatchEncoder(cfg, S, NBYTES, device="cuda", device_pack=fused)
@@ -1648,10 +1752,10 @@ def compiled_phase(card: str, cfg, bench) -> None:
                         (torch.as_tensor(bench12, device=dev),),
                         {"parse": T, "tns_synthesis": T, "ltpf": T}),
         "encode DSP": (encoders[False].steps[("fields", NBYTES)], (pcm_in[0],),
-                       {"sns_pvq": 1, "tns_autocorr": 1, "tns_analysis": 1,
+                       {"sns_pvq": 1, "tns_coefficients": 1, "tns_analysis": 1,
                         "bitmodel_table_part": 2}),
         "fused encode": (encoders[True].steps[("bytes", NBYTES)], (pcm_in[0],),
-                         {"sns_pvq": 1, "tns_autocorr": 1, "tns_analysis": 1,
+                         {"sns_pvq": 1, "tns_coefficients": 1, "tns_analysis": 1,
                           "bitmodel_table_part": 2, "pack": 1}),
     }
     # the steps made one a frame size, on the inputs their graphs last took
@@ -1659,7 +1763,7 @@ def compiled_phase(card: str, cfg, bench) -> None:
         f"make_decode_step {nb} B": (s, s.buffers(), {"tns_synthesis": 1, "ltpf": 1})
         for nb, s in dsteps.items()})
     graphs.update({
-        f"make_encode_step {nb} B": (s, s.buffers(), {"sns_pvq": 1, "tns_autocorr": 1,
+        f"make_encode_step {nb} B": (s, s.buffers(), {"sns_pvq": 1, "tns_coefficients": 1,
                                                       "tns_analysis": 1, "bitmodel_table_part": 2})
         for nb, s in esteps.items()})
     graphs.update({
@@ -1827,7 +1931,7 @@ def api_phase(card: str, cfg, s50) -> None:
 
     (pcm0, pcm1), n = counted("api facade", {
         "parse": 2 * T, "tns_synthesis": 2 * T, "ltpf": 2 * T, "sns_pvq": T,
-        "tns_autocorr": T, "tns_analysis": T, "bitmodel_table_part": 2 * T}, run)
+        "tns_coefficients": T, "tns_analysis": T, "bitmodel_table_part": 2 * T}, run)
     env0 = check_envelope("channel 0", pcm0, s50["pcm_out"])
     max1 = int(np.abs(pcm1.astype(np.int64) - lossy["lossy_pcm_out"]).max())
     plc = (dec.channels[0].metrics.plc_frames, dec.channels[1].metrics.plc_frames)
@@ -2001,20 +2105,20 @@ def main() -> int:
     random_args = {
         "sns_pvq": (torch.as_tensor((g.standard_normal((S_MAIN, 16)) * 3).astype(np.float32),
                                     device=dev),),
-        "tns_autocorr": (rnd, etab.tns_sub[bw_r]),
+        "tns_coefficients": (etab, rnd, bw_r, torch.as_tensor(g.integers(0, 8, S_MAIN) == 0,
+                                                              device=dev), 0),
         "tns_analysis": (rnd, etab.tns_bounds[bw_r], ro_r, nf_r, etab.tns_sin[rci_r]),
         "bitmodel_table_part": (ts["c"], ts["g"], ts["sym"], 512, cfg.ne, ts["lastnz"]),
     }
     enc_fns = {
         "sns_pvq": (sns_kernel.sns_pvq, sns_kernel.sns_pvq_plain),
-        "tns_autocorr": (tns_enc_kernel.tns_autocorr, tns_enc_kernel.tns_autocorr_plain),
+        "tns_coefficients": (tns_enc_kernel.tns_coefficients, tns_enc_kernel.tns_coefficients_plain),
         "tns_analysis": (tns_enc_kernel.tns_analysis, tns_enc_kernel.tns_analysis_plain),
         "bitmodel_table_part": (bitmodel_kernel.bitmodel_table_part,
                                 bitmodel_kernel.bitmodel_table_part_plain),
     }
     lines = []
-    more = {"tns_autocorr": {f"random S={S_MAIN - 1}": (rnd[: S_MAIN - 1],
-                                                        etab.tns_sub[bw_r[: S_MAIN - 1]])},
+    more = {"tns_coefficients": tns_coef_cases(dev),
             "tns_analysis": {k: v[1] for k, v in tns_more.items()},
             "sns_pvq": pvq_cases(dev), "bitmodel_table_part": bitmodel_cases(dev)}
     shapes = set(sns_kernel.sns_pvq_plain(*more["sns_pvq"][f"ties S={S_MAIN - 1}"])[3].tolist())
@@ -2033,6 +2137,7 @@ def main() -> int:
         lines.append(f"{name}: equal" + (f" (also on {', '.join(more[name])})" if name in more else ""))
     torch.cuda.synchronize()
     log("enc-kernels", "; ".join(lines) + " (random and bench inputs, S=2048)")
+    log("division", division_phase(card, dev))
 
     # ---- 4b. the bit model's emit_pack and the pack kernel against their plain versions
     bm = bitmodel_kernel
@@ -2139,7 +2244,7 @@ def main() -> int:
 
     # ---- 7. the encode slice: BatchEncoder over T frames, S = 2048
     enc = BatchEncoder(cfg, S_MAIN, NBYTES, device="cuda")
-    enc_kernels = ("sns_pvq", "tns_autocorr", "tns_analysis", "bitmodel_table_part")
+    enc_kernels = ("sns_pvq", "tns_coefficients", "tns_analysis", "bitmodel_table_part")
     _build.launches.clear()
     out = [enc.encode(pcm_in[tile, f]) for f in range(T_FRAMES)]
     launches.update({k: launch_counts()[k] for k in enc_kernels})
@@ -2302,10 +2407,24 @@ def main() -> int:
     rounds = (6 - k0).clamp(min=0) + 2 + 10
     bounds["sns_pvq"] = bound(nbytes_of(t2) + S_MAIN * (16 * 12 + 12),
                               float((110 * rounds + 200 + 14 * 48).sum()))
-    xa, suba = real["tns_autocorr"]
+    # the TNS coefficients read x, bw_ind, near_nyquist and five small
+    # tables, and write the lag sums and four fields; a multiply and an add
+    # a term of the lag folds, and COEF_EPILOGUE_OPS a (stream, filter)
+    ctab, xa, bwa, nna, _ = real["tns_coefficients"]
+    suba = ctab.tns_sub[bwa.long()]
     lo, hi = suba[..., 0].long(), suba[..., 1].long()
     terms = sum(torch.clamp_min(hi - lo - k, 0).sum() for k in range(9))
-    bounds["tns_autocorr"] = bound(nbytes_of(xa, suba) + S_MAIN * 54 * 4, 2.0 * float(terms))
+    coef_out = S_MAIN * (54 + 16 + 16 + 2 + 1) * 4
+    bounds["tns_coefficients"] = bound(
+        nbytes_of(xa, bwa, nna, ctab.tns_sub, ctab.lag_window, ctab.tns_sin, ctab.tns_bits,
+                  ctab.tns_step) + coef_out,
+        2.0 * float(terms) + 2 * S_MAIN * COEF_EPILOGUE_OPS)
+    # its chain floor: the fewest cycles the lag folds and the epilogue of
+    # one (stream, filter) take alone (the bench's first four streams, the
+    # filter whose chain is longer), at the card's highest SM clock; and the
+    # body it replaced, the lag sums alone (tools/kernel_phases.py)
+    coef_alone, prev_body = kernel_phases.coefficient_chain(real["tns_coefficients"])
+    coef_floor = min(a + b for a, b in coef_alone) / (clock * 1e3)
     xn, bnd, ro_e, nf_e, rcq = real["tns_analysis"]
     o2 = torch.stack([ro_e[:, 0], torch.where(nf_e > 1, ro_e[:, 1], 0)], 1).long()
     bl = bnd.reshape(-1, 4).long()
@@ -2349,16 +2468,18 @@ def main() -> int:
     # the kernel and the library call alternated call by call over PAIR_REPS
     # calls each (the host sets both event times, and moves), then each
     # one's device time
-    ac_ms, library["tns_autocorr"] = cuda_ms_pair(
-        lambda: tns_enc_kernel.tns_autocorr(*real["tns_autocorr"]), bmm, PAIR_REPS)
-    times["tns_autocorr"] = (ac_ms, times["tns_autocorr"][1])
+    coef_fn = lambda: tns_enc_kernel.tns_coefficients(*real["tns_coefficients"])
+    ac_ms, library["tns_coefficients"] = cuda_ms_pair(coef_fn, bmm, PAIR_REPS)
+    times["tns_coefficients"] = (ac_ms, times["tns_coefficients"][1])
+    prev_pair = cuda_ms_pair(coef_fn, prev_body, PAIR_REPS)
     # each kernel's device time apart from its wrapper's host work, after
     # every event time so that no profiler session precedes one
     dev_ms = {k: device_ms(lambda: kern(*a), KERNELS[k][1]) for k, (a, kern, _) in kargs.items()}
     emit_dev = device_ms(lambda: bitmodel_kernel.bitmodel_table_part(*bm_args, emit_pack=True),
                          "bitmodel_kernel")
     lt_main_ms[1] = device_ms(lt_main_fn, "ltpf_kernel")
-    library_dev = {"tns_autocorr": device_ms(bmm, None)}
+    library_dev = {"tns_coefficients": device_ms(bmm, None)}
+    prev_dev = device_ms(prev_body, "tns_autocorr_kernel")
 
     rt = lambda ms: S_MAIN * (cfg.nf / cfg.fs) / (ms / 1e3)
     log("encode-times", f"{card}, S={S_MAIN}, {REPS} reps alternated, median [min-max] ms: "
@@ -2387,6 +2508,13 @@ def main() -> int:
                      f"{', '.join(f'{c:.1f}' for c in pvq_cyc)} cycles a greedy round (the "
                      f"bench's four streams); x {pvq_rounds} rounds at {clock:.0f} MHz = chain floor "
                      f"{pvq_floor:.5f} ms against {dev_ms['sns_pvq']:.4f} ms on the device")
+    log("tns-coef", f"{card}: tns_coefficients kernel {times['tns_coefficients'][0]:.4f} ms "
+                    f"(device {dev_ms['tns_coefficients']:.4f}) against the body it replaced, the lag "
+                    f"sums alone, alternated: {prev_pair[0]:.4f} vs {prev_pair[1]:.4f} ms (device "
+                    f"{prev_dev:.4f}); one (stream, filter) alone, (lag folds, epilogue) cycles "
+                    f"{coef_alone} (the bench's four streams) at {clock:.0f} MHz = chain floor "
+                    f"{coef_floor:.5f} ms; bound {bounds['tns_coefficients'][0]:.5f} ms "
+                    f"({bounds['tns_coefficients'][1]})")
     log("host-pack", f"{card}: the C++ host packer (native/lc3_bitstream.cc, {host_pack.N_THREADS} "
                      f"threads) on the pack kernel's bench fields, S={S_MAIN}, 150 B: "
                      f"{spread(host_ms)} ms wall, median [min-max] of {REPS}")
@@ -2417,7 +2545,11 @@ def main() -> int:
     kernels[list(KERNELS).index("ltpf")].update(
         decode_step_args_ms=lt_main_ms[0], decode_step_args_device_ms=lt_main_ms[1],
         decode_step_args_plain_ms=lt_main_ms[2])
-    kernels[list(KERNELS).index("tns_autocorr")].update(library_device_ms=library_dev["tns_autocorr"])
+    kernels[list(KERNELS).index("tns_coefficients")].update(
+        library_device_ms=library_dev["tns_coefficients"], library_covers="the lag sums only",
+        prev_body_ms=prev_pair[1], prev_body_device_ms=prev_dev, paired_ms=prev_pair[0],
+        chain_floor_ms=coef_floor, chain_cycles=min(a + b for a, b in coef_alone),
+        chain_cycles_alone=coef_alone, sm_clock_mhz=clock)
     kernels[list(KERNELS).index("tns_synthesis")].update(
         chain_floor_ms=chain_floor, chain_cycles_a_line=min(chain_cyc), chain_lines=chain_lines,
         sm_clock_mhz=clock)

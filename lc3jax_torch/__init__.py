@@ -12,8 +12,9 @@ These paths run on the card:
 - encode, PCM -> fields -> bytes (`serving.BatchEncoder`, the host-pack
   mode of `lc3jax.serving.BatchEncoder`): `dsp.encoder.encode_step` on the
   card, with the SNS PVQ search (`csrc/sns_pvq.cu`), the TNS
-  autocorrelation and analysis lattice (`csrc/tns_autocorr.cu`,
-  `csrc/tns_analysis.cu`) and the bit model (`csrc/bitmodel.cu`) as
+  coefficients (autocorrelation to quantised reflection coefficients and
+  bits, `csrc/tns_coefficients.cu`) and analysis lattice
+  (`csrc/tns_analysis.cu`) and the bit model (`csrc/bitmodel.cu`) as
   kernels, then the repo's C++ packer on the host (`coding.host_pack`);
 - encode, PCM -> bytes on the card (`serving.BatchEncoder(device_pack=True)`,
   the fused mode of `lc3jax.serving.BatchEncoder`): the same step with the

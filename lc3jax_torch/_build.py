@@ -49,7 +49,7 @@ SIGNATURES = {
     "lc3t_ltpf_both_passes": [_PTR] * 13 + [_INT] * 7 + [_PTR],
     "lc3t_parse": [_PTR] * 4 + [_INT] * 5 + [_PTR],
     "lc3t_sns_pvq": [_PTR] * 8 + [_INT] + [_PTR],
-    "lc3t_tns_autocorr": [_PTR] * 3 + [_INT] * 2 + [_PTR],
+    "lc3t_tns_coefficients": [_PTR] * 13 + [_INT] * 3 + [_PTR],
     "lc3t_tns_analysis": [_PTR] * 6 + [_INT] * 2 + [_PTR],
     "lc3t_bitmodel": [_PTR] * 7 + [_INT] * 3 + [_PTR],
     "lc3t_pack": [_PTR] * 6 + [_INT] * 5 + [_PTR],

@@ -27,7 +27,8 @@ from . import fp
 from . import tables as T
 from .config import Lc3Config
 from .dsp.decoder import BOOL_FRAME_FIELDS, DecoderState, ParsedFrames
-from .dsp.encoder import EncoderParams, EncoderState, encoder_params, gain_table
+from .dsp.encoder import (GAIN_ADJUST_T1, GAIN_ADJUST_T2, EncoderParams, EncoderState, encoder_params,
+                          gain_table)
 from .dsp.encoder_ltpf import LtpfEncConsts, LtpfEncState, ltpf_enc_consts
 from .dsp.ltpf import LtpfState, _gains
 from .dsp.params import DecoderParams, decoder_params
@@ -199,14 +200,22 @@ class EncoderTables:
     tns_sub: torch.Tensor  # int32 [5, 2, 3, 2]
     tns_bounds: torch.Tensor  # int32 [5, 2, 2]
     lag_window: torch.Tensor  # f32 [9]
-    tns_step: float  # f32 pi / 17
+    tns_step: torch.Tensor  # f32 [] pi / 17 (also divisors["tns_step"])
     tns_sin: torch.Tensor  # f32 [17] sinf(step * (i - 8))
-    tns_order_bits: torch.Tensor  # int64 [2, 8]
-    tns_coef_bits: torch.Tensor  # int64 [8, 17]
+    tns_bits: torch.Tensor  # int32 [2 * 8 + 8 * 17]: order bits [2, 8], then coefficient bits [8, 17]
     gg_table: torch.Tensor  # f32 [256]
     gg_off: int
     nf_bw_stop: torch.Tensor  # int64 [5]
     ltpf: LtpfEncConsts
+    # {site: f32 [] on the device}, one for each constant, not a power of two,
+    # that the encoder divides a tensor by: on a card, `t / c` with c a Python
+    # float is t times the reciprocal of c (PyTorch's true division by a CPU
+    # scalar), which differs from the oracle's division by one ulp in up to
+    # 63% of values (tools/division_check.py); `t / divisors[site]` divides.
+    # Sites: sns_attack_5, sns_attack_3, gain_estimate (20), gain_limit
+    # (32767.625), gain_adjust (t2 - t1), gain_adjust_48, tns_step, and
+    # bandwidth_width_k, the width of bandwidth candidate k < fs_ind
+    divisors: dict
 
 
 LAG_WINDOW = np.array([1.0, 0.9980280260203829, 0.9921354055113971, 0.9823915844707989,
@@ -225,6 +234,14 @@ def _encoder_tables(cfg: Lc3Config, nbits: int, device: torch.device) -> Encoder
     valid = np.arange(maxw)[None, :] < widths[:, None]
     step = F32(np.pi / 17.0)
     gg, gg_off = gain_table(nbits, cfg.fs_ind)
+    tns_step = f32(step)
+    divisors = {
+        "sns_attack_5": f32(5.0), "sns_attack_3": f32(3.0), "gain_estimate": f32(20.0),
+        "gain_limit": f32(32767.625),
+        "gain_adjust": f32(F32(GAIN_ADJUST_T2[cfg.fs_ind]) - F32(GAIN_ADJUST_T1[cfg.fs_ind])),
+        "gain_adjust_48": f32(48.0), "tns_step": tns_step,
+        **{f"bandwidth_width_{k}": f32(p.bw_stop[k] + 1 - p.bw_start[k]) for k in range(cfg.fs_ind)},
+    }
     return EncoderTables(
         p=p,
         window=f32(p.window),
@@ -243,14 +260,16 @@ def _encoder_tables(cfg: Lc3Config, nbits: int, device: torch.device) -> Encoder
         tns_sub=torch.as_tensor(np.asarray(p.tns_sub, np.int32), device=device),
         tns_bounds=torch.as_tensor(np.asarray(p.tns_bounds, np.int32), device=device),
         lag_window=f32(LAG_WINDOW),
-        tns_step=float(step),
+        tns_step=tns_step,
         tns_sin=f32([np.sin(np.float64(step * (F32(i) - F32(8.0)))) for i in range(17)]),
-        tns_order_bits=i64(T.AC_TNS_ORDER_BITS),
-        tns_coef_bits=i64(T.AC_TNS_COEF_BITS),
+        tns_bits=torch.as_tensor(np.concatenate([np.ravel(T.AC_TNS_ORDER_BITS),
+                                                 np.ravel(T.AC_TNS_COEF_BITS)]).astype(np.int32),
+                                 device=device),
         gg_table=f32(gg),
         gg_off=gg_off,
         nf_bw_stop=i64(p.nf_bw_stop),
         ltpf=ltpf_enc_consts(cfg, device),
+        divisors=divisors,
     )
 
 

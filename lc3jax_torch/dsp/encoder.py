@@ -56,6 +56,10 @@ I32 = torch.int32
 EPS = float(np.finfo(np.float32).eps)
 NBITS_SNS = 38
 SZ_A = 2390004  # MPVQ index range of shape A (spectral_noise_shaping.rs)
+# the global gain adjustment's bit thresholds by fs_ind (ref/quant.py:238-267)
+GAIN_ADJUST_T1 = (80, 230, 380, 530, 680)
+GAIN_ADJUST_T2 = (500, 1025, 1550, 2075, 2600)
+GAIN_ADJUST_T3 = (850, 1700, 2550, 3400, 4250)
 
 
 # ------------------------------------------------------------------ params
@@ -262,8 +266,9 @@ def forward_mdct(tab, time_buf, x_s):
     return new_buf, x, energy, nn
 
 
-def bandwidth_detect(p: EncoderParams, e_b):
+def bandwidth_detect(tab, e_b):
     """Two-stage band-limit detector (ref/encoder_stages.py:39-69)."""
+    p = tab.p
     fs_ind = p.cfg.fs_ind
     nbits = [0, 1, 2, 2, 3][fs_ind]
     S = e_b.shape[0]
@@ -271,14 +276,14 @@ def bandwidth_detect(p: EncoderParams, e_b):
     if fs_ind == 0:
         return torch.zeros(S, dtype=I32, device=dev), nbits
 
-    # stage 1: the highest candidate that is not quiet
+    # stage 1: the highest candidate that is not quiet (the mean divides by
+    # the band's width as a device tensor: tab.divisors)
     bw_ind = torch.zeros(S, dtype=I32, device=dev)
     found = torch.zeros(S, dtype=torch.bool, device=dev)
     thresh = [20.0, 10.0, 10.0, 10.0]
     for k in range(fs_ind - 1, -1, -1):
         start, stop = int(p.bw_start[k]), int(p.bw_stop[k])
-        width = float(stop + 1 - start)
-        quiet = fp.seq_fold(e_b[:, start : stop + 1] / width, 1)
+        quiet = fp.seq_fold(e_b[:, start : stop + 1] / tab.divisors[f"bandwidth_width_{k}"], 1)
         hit = (quiet >= thresh[k]) & ~found
         bw_ind = torch.where(hit, k + 1, bw_ind)
         found = found | hit
@@ -374,15 +379,17 @@ def sns_analysis(tab, x, e_b, attack):
     mean = fp.seq_fold(ds, 1)[:, None] / 16.0
     ds = 0.85 * (ds - mean)
 
-    # attack smoothing: windowed means in the oracle's fold order
+    # attack smoothing: windowed means in the oracle's fold order (divided
+    # by device tensors: tab.divisors)
+    d5, d3 = tab.divisors["sns_attack_5"], tab.divisors["sns_attack_3"]
     pad = torch.cat([ds[:, :1], ds[:, :1], ds, ds[:, -1:], ds[:, -1:]], dim=1)
-    att = (((pad[:, 0:16] + pad[:, 1:17]) + pad[:, 2:18]) + pad[:, 3:19] + pad[:, 4:20]) / 5.0
+    att = (((pad[:, 0:16] + pad[:, 1:17]) + pad[:, 2:18]) + pad[:, 3:19] + pad[:, 4:20]) / d5
     att = torch.cat([
-        ((ds[:, 0:1] + ds[:, 1:2]) + ds[:, 2:3]) / 3.0,
+        ((ds[:, 0:1] + ds[:, 1:2]) + ds[:, 2:3]) / d3,
         (((ds[:, 0:1] + ds[:, 1:2]) + ds[:, 2:3]) + ds[:, 3:4]) / 4.0,
         att[:, 2:14],
         (((ds[:, 12:13] + ds[:, 13:14]) + ds[:, 14:15]) + ds[:, 15:16]) / 4.0,
-        ((ds[:, 13:14] + ds[:, 14:15]) + ds[:, 15:16]) / 3.0,
+        ((ds[:, 13:14] + ds[:, 14:15]) + ds[:, 15:16]) / d3,
     ], dim=1)
     atten = 0.5 if p.cfg.n_ms == FrameDuration.MS10 else 0.3
     att = atten * (att - fp.seq_fold(att, 1)[:, None] / 16.0)
@@ -482,117 +489,24 @@ def _mpvq_enum_batch(tab, y, dims):
 
 
 def tns_analysis_batch(tab, x, bw_ind, nbits: int, near_nyquist):
-    """TNS (ref/tns_enc.py): autocorrelation (kernel), Levinson-Durbin,
-    LPC weighting, reflection coefficients and their quantisation, the bit
-    budget, and the analysis lattice (kernel)."""
-    p = tab.p
-    cfg = p.cfg
-    S = x.shape[0]
-    dev = x.device
+    """TNS (ref/tns_enc.py): the coefficient kernel (autocorrelation,
+    Levinson-Durbin, LPC weighting, reflection coefficients and their
+    quantisation, the bit budget), then the analysis lattice (kernel)."""
+    cfg = tab.p.cfg
     if cfg.n_ms == FrameDuration.MS10:
         lpc_weighting = 1 if nbits < 480 else 0
     else:
         lpc_weighting = 1 if nbits < 360 else 0
     bw = bw_ind.long()
-    sub = tab.tns_sub[bw]  # [S, 2, 3, 2]
     bounds = tab.tns_bounds[bw]  # [S, 2, 2]
     num_filters = torch.where(bw >= 3, 2, 1).to(I32)
-
-    ac_all = tns_enc_kernel.tns_autocorr(x, sub)  # [S, 2, 3, 9]
-
-    rc_q = torch.zeros(S, 16, dtype=torch.float32, device=dev)
-    rc_i = torch.full((S, 16), 8, dtype=torch.int64, device=dev)
-    rc_order = torch.zeros(S, 2, dtype=I32, device=dev)
-    one_minus_085 = float(F32(1.0) - F32(0.85))
-    for f in range(2):
-        es = ac_all[:, f, :, 0]  # [S, 3]
-        e_prod = (es[:, 0] * es[:, 1]) * es[:, 2]
-        ok = es != 0.0
-        rs = []
-        for k in range(9):
-            q = torch.where(ok, ac_all[:, f, :, k] / es, 0.0)
-            rk = (q[:, 0] + q[:, 1]) + q[:, 2]
-            r0 = 3.0 if k == 0 else 0.0
-            rs.append(torch.where(e_prod == 0.0, r0, rk) * tab.lag_window[k])
-        r = torch.stack(rs, 1)  # [S, 9]
-
-        # Levinson-Durbin (ref/tns_enc.py:161-176)
-        a = [torch.ones(S, device=dev)] + [torch.zeros(S, device=dev)] * 8
-        e = r[:, 0]
-        for k in range(1, 9):
-            rc = torch.zeros(S, device=dev)
-            for n in range(k):
-                rc = rc - a[n] * r[:, k - n]
-            rc = torch.where(e != 0.0, rc / e, rc)
-            new_a = list(a)
-            for n in range(1, k):
-                new_a[n] = a[n] + rc * a[k - n]
-            new_a[k] = rc
-            a = new_a
-            e = e * (1.0 - rc * rc)
-
-        pred_gain = torch.where(e == 0.0, r[:, 0], r[:, 0] / e)
-        on = (pred_gain > 1.5) & ~near_nyquist
-        gamma = torch.where((lpc_weighting > 0) & (pred_gain < 2.0),
-                            1.0 - (one_minus_085 * (2.0 - pred_gain)) / 0.5,
-                            torch.ones_like(pred_gain))
-        a = [a[k] * _powi(gamma, k) for k in range(9)]
-
-        # LPC -> reflection coefficients (inverse recursion)
-        rc_f = [None] * 8
-        a_k = a
-        for k in range(8, 0, -1):
-            rck = a_k[k]
-            rc_f[k - 1] = rck
-            ee = 1.0 - rck * rck
-            new_a = list(a_k)
-            for n in range(1, k):
-                new_a[n] = (a_k[n] - rck * a_k[k - n]) / ee
-            a_k = new_a
-        rc_f = torch.where(on[:, None], torch.stack(rc_f, 1), 0.0)
-
-        # quantise: round(asinf(rc) / (pi/17)) + 8
-        q = fp.asinf(rc_f) / tab.tns_step
-        qi = torch.where(q >= 0.0, (q + 0.5).to(torch.int64), -((-q + 0.5).to(torch.int64)))
-        rci_f = qi + 8
-        rcq_f = tab.tns_sin[rci_f.clamp(0, 16)]
-        nz = rci_f != 8
-        k8 = torch.arange(1, 9, device=dev)
-        order = torch.where(nz, k8, 0).amax(1)  # highest k with rc_i != 8
-
-        exists = f < num_filters
-        rc_i[:, 8 * f : 8 * f + 8] = torch.where(exists[:, None], rci_f, 8)
-        rc_q[:, 8 * f : 8 * f + 8] = torch.where(exists[:, None], rcq_f, 0.0)
-        rc_order[:, f] = torch.where(exists, order, 0)
-
-    # bit budget from the arithmetic coder's table costs
-    nbits_tns = torch.zeros(S, dtype=torch.int64, device=dev)
-    ks = torch.arange(8, device=dev)
-    for f in range(2):
-        o = rc_order[:, f]
-        nb_order = torch.where(o > 0, tab.tns_order_bits[lpc_weighting][(o - 1).clamp(min=0)], 0)
-        per_k = tab.tns_coef_bits[ks[None, :], rc_i[:, 8 * f : 8 * f + 8]]  # [S, 8]
-        nb_coef = torch.where(ks[None, :] < o[:, None], per_k, 0).sum(1)
-        add = torch.ceil((2048.0 + nb_order.float() + nb_coef.float()) / 2048.0).long()
-        nbits_tns = nbits_tns + torch.where(f < num_filters, add, 0)
-
+    _, rc_i, rc_q, rc_order, nbits_tns = tns_enc_kernel.tns_coefficients(
+        tab, x, bw_ind, near_nyquist, lpc_weighting)
     x_f = tns_enc_kernel.tns_analysis(x, bounds, rc_order, num_filters, rc_q)
     return x_f, dict(
-        nbits_tns=nbits_tns.to(I32), lpc_weighting=lpc_weighting,
-        num_tns_filters=num_filters, rc_order=rc_order, rc_i=rc_i.to(I32),
+        nbits_tns=nbits_tns, lpc_weighting=lpc_weighting,
+        num_tns_filters=num_filters, rc_order=rc_order, rc_i=rc_i,
     )
-
-
-def _powi(x, n: int):
-    """f32 x^n by binary exponentiation (LLVM powi, ref/tns_enc.py:_powi)."""
-    result = torch.ones_like(x)
-    base = x
-    while n > 0:
-        if n & 1:
-            result = result * base
-        base = base * base
-        n >>= 1
-    return result
 
 
 # ------------------------------------------------------- spectral quantizer
@@ -629,7 +543,7 @@ def spectral_quantize(tab, state: EncoderState, x_f, nbits: int, nbits_bw: int,
     # gain bisection (ref/quant.py:112-143). Its 8 steps test 8 of the 256
     # gain indices; the oracle's f32 fold over the reversed energies is run
     # once for all 256 thresholds ([S, 256] wide) and the bisection reads it
-    k28, k20 = 28.0, 20.0
+    k28, k20 = 28.0, tab.divisors["gain_estimate"]
     c27 = float(F32(2.7) * F32(28.0) / F32(20.0))
     c43 = float(F32(43.0) * F32(28.0) / F32(20.0))
     c36 = float(F32(36.0) * F32(28.0) / F32(20.0))
@@ -660,7 +574,7 @@ def spectral_quantize(tab, state: EncoderState, x_f, nbits: int, nbits_bw: int,
     x_max = x_f.abs().amax(1)
     gg_min = torch.where(
         x_max > 0.0,
-        torch.ceil(28.0 * fp.log10f(x_max / 32767.625)).to(torch.int64) - gg_off, 0)
+        torch.ceil(28.0 * fp.log10f(x_max / tab.divisors["gain_limit"])).to(torch.int64) - gg_off, 0)
     reset_offset = (gg_ind < gg_min) | (x_max == 0.0)
     gg_ind = torch.where(reset_offset, gg_min, gg_ind)
 
@@ -679,9 +593,7 @@ def spectral_quantize(tab, state: EncoderState, x_f, nbits: int, nbits_bw: int,
     )
 
     # global gain adjustment (ref/quant.py:238-267), in the oracle's f32 ops
-    t1 = [80, 230, 380, 530, 680][fs_ind]
-    t2 = [500, 1025, 1550, 2075, 2600][fs_ind]
-    t3 = [850, 1700, 2550, 3400, 4250][fs_ind]
+    t1, t2, t3 = GAIN_ADJUST_T1[fs_ind], GAIN_ADJUST_T2[fs_ind], GAIN_ADJUST_T3[fs_ind]
     tmp1 = F32(t1) / F32(16.0) + F32(3.0)
     tmp2 = F32(t2) / F32(48.0)
     est = bc["nbits_est"]
@@ -689,8 +601,9 @@ def spectral_quantize(tab, state: EncoderState, x_f, nbits: int, nbits_bw: int,
     delta = torch.where(
         est < t1, (nbe + 48.0) / 16.0,
         torch.where(est < t2,
-                    ((nbe - float(t1)) * float(tmp2 - tmp1)) / float(F32(t2) - F32(t1)) + float(tmp1),
-                    torch.where(est < t3, nbe / 48.0,
+                    ((nbe - float(t1)) * float(tmp2 - tmp1)) / tab.divisors["gain_adjust"]
+                    + float(tmp1),
+                    torch.where(est < t3, nbe / tab.divisors["gain_adjust_48"],
                                 torch.full_like(nbe, float(F32(t3) / F32(48.0))))))
     delta = torch.floor(delta + 0.5)
     delta2 = delta + 2.0
@@ -856,7 +769,7 @@ def encode_step(cfg: Lc3Config, nbytes: int, state: EncoderState, x_s,
     p = tab.p
 
     time_buf, x, e_b, near_nyquist = forward_mdct(tab, state.time_buf, x_s)
-    bw_ind, nbits_bw = bandwidth_detect(p, e_b)
+    bw_ind, nbits_bw = bandwidth_detect(tab, e_b)
     attack, att_state = attack_detect(p, state, x_s, nbytes)
     x, sns_fields = sns_analysis(tab, x, e_b, attack)
     x, tns_fields = tns_analysis_batch(tab, x, bw_ind, nbits, near_nyquist)

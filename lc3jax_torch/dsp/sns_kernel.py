@@ -47,7 +47,9 @@ def sns_pvq_plain(t2rot: torch.Tensor):
     lanes = torch.arange(16, device=dev)
 
     abs_sum = _fold(ax)
-    proj = 5.0 / abs_sum  # (6 - 1) / abs_sum
+    # (6 - 1) / abs_sum, a division as in the oracle and the kernel: `5.0 /
+    # abs_sum` would be abs_sum's reciprocal times 5 (Tensor.__rtruediv__)
+    proj = torch.full_like(abs_sum, 5.0) / abs_sum
     y3 = torch.floor(absx * proj[:, None]).to(torch.int32)
     y3f = y3.to(torch.float32)
     k0 = y3.sum(1)  # integers: exact in any order

@@ -1,13 +1,16 @@
-"""Encoder TNS: the autocorrelation kernel (csrc/tns_autocorr.cu), the
+"""Encoder TNS: the coefficient kernel (csrc/tns_coefficients.cu), the
 analysis lattice kernel (csrc/tns_analysis.cu), and their plain PyTorch
 versions.
 
-- tns_autocorr replaces lc3jax/dsp/pallas_tns.py:tns_autocorr_pallas: for
-  each of 2 filters x 3 sub-blocks the lag-0..8 sums of x[n] * x[n + k] over
-  n in [lo, hi - k). Both versions sum in the oracle's order
-  (lc3jax/ref/tns_enc.py:_autocorrelation), one strict left-to-right f32
-  fold per lag; the JAX XLA and Pallas versions reduce with jnp.sum, whose
-  order is XLA's.
+- tns_coefficients replaces lc3jax/dsp/pallas_tns.py:tns_autocorr_pallas
+  and the XLA glue after it (lc3jax/dsp/encoder.py:705-871): for each
+  stream, the lag-0..8 sums of x[n] * x[n + k] over n in [lo, hi - k) of
+  its 2 filters x 3 sub-blocks, then per filter the normalised, windowed
+  autocorrelation, Levinson-Durbin, the prediction-gain gate, the LPC
+  weighting, the reflection coefficients, their quantisation and the bit
+  budget (lc3jax/ref/tns_enc.py:60-200). Each lag sum is the oracle's
+  strict left-to-right f32 fold (ref/tns_enc.py:_autocorrelation); the JAX
+  XLA and Pallas versions reduce with jnp.sum, whose order is XLA's.
 - tns_analysis replaces lc3jax/dsp/pallas_tns.py:tns_analysis_pallas: the
   forward lattice (up to 2 filters of order <= 8) over the spectral lines,
   following the XLA scan of lc3jax/dsp/encoder.py:877-913.
@@ -18,9 +21,13 @@ raises.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, fp
+
+I32 = torch.int32
+ONE_MINUS_085 = float(np.float32(1.0) - np.float32(0.85))
 
 
 def _check(name, x, others):
@@ -33,14 +40,15 @@ def _check(name, x, others):
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-# ----------------------------------------------------------- autocorrelation
+# ------------------------------------------------------ TNS coefficients
 
 
 def tns_autocorr_plain(x: torch.Tensor, sub: torch.Tensor) -> torch.Tensor:
-    """x [S, ne] f32, sub [S, 2, 3, 2] int32 (lo, hi) -> [S, 2, 3, 9] f32."""
+    """x [S, ne] f32, sub [S, 2, 3, 2] int32 (lo, hi) -> [S, 2, 3, 9] f32;
+    a bound past ne stops at ne, as the oracle's slices do."""
     S, ne = x.shape
-    lo = sub[..., 0].reshape(S, 6).long()
-    hi = sub[..., 1].reshape(S, 6).long()
+    hi = sub[..., 1].reshape(S, 6).long().clamp(max=ne)
+    lo = torch.minimum(sub[..., 0].reshape(S, 6).long(), hi)
     L = int((hi - lo).max()) if S else 0
     pos = lo[:, :, None] + torch.arange(L + 8, device=x.device)  # [S, 6, L + 8]
     xw = x.gather(1, pos.clamp(max=ne - 1).reshape(S, -1)).reshape(S, 6, L + 8)
@@ -51,31 +59,156 @@ def tns_autocorr_plain(x: torch.Tensor, sub: torch.Tensor) -> torch.Tensor:
     return acc.reshape(S, 2, 3, 9)
 
 
-def tns_autocorr(x: torch.Tensor, sub: torch.Tensor) -> torch.Tensor:
-    """Masked lag sums for any S >= 1 (see tns_autocorr_plain).
+def _powi(x, n: int):
+    """f32 x^n by binary exponentiation (LLVM powi, ref/tns_enc.py:_powi)."""
+    result = torch.ones_like(x)
+    base = x
+    while n > 0:
+        if n & 1:
+            result = result * base
+        base = base * base
+        n >>= 1
+    return result
 
-    The kernel's device work is about 7 µs at S = 2048, so this wrapper is kept
-    to what a PyTorch call costs on the host: attribute checks, one
-    allocation and one launch through `_build.launch`, no conversion of
-    inputs that need none."""
-    if not x.is_cuda:
-        if x.device.type == "cpu":
-            return tns_autocorr_plain(x, sub)
-        raise ValueError(f"tns_autocorr: unsupported device {x.device}")
+
+def tns_lpc_plain(tab, ac, near_nyquist, lpc_weighting: int):
+    """ac [S, 2, 3, 9] lag sums -> (rc [S, 2, 8] f32, the reflection
+    coefficients, zero where the prediction-gain gate is off; pred_gain
+    [S, 2] f32). ref/tns_enc.py:140-200."""
+    S = ac.shape[0]
+    dev = ac.device
+    rcs, gains = [], []
+    for f in range(2):
+        es = ac[:, f, :, 0]  # [S, 3]
+        e_prod = (es[:, 0] * es[:, 1]) * es[:, 2]
+        ok = es != 0.0
+        rs = []
+        for k in range(9):
+            q = torch.where(ok, ac[:, f, :, k] / es, 0.0)
+            rk = (q[:, 0] + q[:, 1]) + q[:, 2]
+            r0 = 3.0 if k == 0 else 0.0
+            rs.append(torch.where(e_prod == 0.0, r0, rk) * tab.lag_window[k])
+        r = torch.stack(rs, 1)  # [S, 9]
+
+        # Levinson-Durbin (ref/tns_enc.py:161-176)
+        a = [torch.ones(S, device=dev)] + [torch.zeros(S, device=dev)] * 8
+        e = r[:, 0]
+        for k in range(1, 9):
+            rc = torch.zeros(S, device=dev)
+            for n in range(k):
+                rc = rc - a[n] * r[:, k - n]
+            rc = torch.where(e != 0.0, rc / e, rc)
+            new_a = list(a)
+            for n in range(1, k):
+                new_a[n] = a[n] + rc * a[k - n]
+            new_a[k] = rc
+            a = new_a
+            e = e * (1.0 - rc * rc)
+
+        pred_gain = torch.where(e == 0.0, r[:, 0], r[:, 0] / e)
+        on = (pred_gain > 1.5) & ~near_nyquist
+        gamma = torch.where((lpc_weighting > 0) & (pred_gain < 2.0),
+                            1.0 - (ONE_MINUS_085 * (2.0 - pred_gain)) / 0.5,
+                            torch.ones_like(pred_gain))
+        a = [a[k] * _powi(gamma, k) for k in range(9)]
+
+        # LPC -> reflection coefficients (inverse recursion)
+        rc_f = [None] * 8
+        a_k = a
+        for k in range(8, 0, -1):
+            rck = a_k[k]
+            rc_f[k - 1] = rck
+            ee = 1.0 - rck * rck
+            new_a = list(a_k)
+            for n in range(1, k):
+                new_a[n] = (a_k[n] - rck * a_k[k - n]) / ee
+            a_k = new_a
+        rcs.append(torch.where(on[:, None], torch.stack(rc_f, 1), 0.0))
+        gains.append(pred_gain)
+    return torch.stack(rcs, 1), torch.stack(gains, 1)
+
+
+def tns_quantise_plain(tab, rc):
+    """rc f32 [...] -> its index rc_i, int64: round(asinf(rc) / (pi/17)),
+    halves away from zero, + 8 (ref/tns_enc.py:80-86). tab.tns_step is a
+    device tensor: a Python float would divide on a card as a reciprocal
+    multiply, which takes rc = 0.9829731 to 16 where the oracle has 15."""
+    q = fp.asinf(rc) / tab.tns_step
+    qi = torch.where(q >= 0.0, (q + 0.5).to(torch.int64), -((-q + 0.5).to(torch.int64)))
+    return qi + 8
+
+
+def tns_coefficients_plain(tab, x, bw_ind, near_nyquist, lpc_weighting: int):
+    """x [S, ne] f32, bw_ind [S] int32, near_nyquist [S] bool ->
+    (ac [S, 2, 3, 9] f32, rc_i [S, 16] int32, rc_q [S, 16] f32,
+    rc_order [S, 2] int32, nbits_tns [S] int32); a filter the bandwidth
+    does not have (f >= num_filters) gets rc_i 8, rc_q 0 and order 0."""
+    S = x.shape[0]
+    dev = x.device
+    bw = bw_ind.long()
+    num_filters = torch.where(bw >= 3, 2, 1)
+    ac = tns_autocorr_plain(x, tab.tns_sub[bw])
+    rc, _ = tns_lpc_plain(tab, ac, near_nyquist, lpc_weighting)
+
+    rc_q = torch.zeros(S, 16, dtype=torch.float32, device=dev)
+    rc_i = torch.full((S, 16), 8, dtype=torch.int64, device=dev)
+    rc_order = torch.zeros(S, 2, dtype=I32, device=dev)
+    k8 = torch.arange(1, 9, device=dev)
+    for f in range(2):
+        rci_f = tns_quantise_plain(tab, rc[:, f])
+        rcq_f = tab.tns_sin[rci_f.clamp(0, 16)]
+        order = torch.where(rci_f != 8, k8, 0).amax(1)  # highest k with rc_i != 8
+        exists = f < num_filters
+        rc_i[:, 8 * f : 8 * f + 8] = torch.where(exists[:, None], rci_f, 8)
+        rc_q[:, 8 * f : 8 * f + 8] = torch.where(exists[:, None], rcq_f, 0.0)
+        rc_order[:, f] = torch.where(exists, order, 0)
+
+    # bit budget from the arithmetic coder's table costs
+    order_bits, coef_bits = tab.tns_bits[:16].view(2, 8), tab.tns_bits[16:].view(8, 17)
+    nbits_tns = torch.zeros(S, dtype=torch.int64, device=dev)
+    ks = torch.arange(8, device=dev)
+    for f in range(2):
+        o = rc_order[:, f]
+        nb_order = torch.where(o > 0, order_bits[lpc_weighting][(o - 1).clamp(min=0)], 0)
+        per_k = coef_bits[ks[None, :], rc_i[:, 8 * f : 8 * f + 8]]  # [S, 8]
+        nb_coef = torch.where(ks[None, :] < o[:, None], per_k, 0).sum(1)
+        add = torch.ceil((2048.0 + nb_order.float() + nb_coef.float()) / 2048.0).long()
+        nbits_tns = nbits_tns + torch.where(f < num_filters, add, 0)
+    return ac, rc_i.to(I32), rc_q, rc_order, nbits_tns.to(I32)
+
+
+def tns_coefficients(tab, x, bw_ind, near_nyquist, lpc_weighting: int):
+    """TNS coefficients for any S >= 1 (see tns_coefficients_plain). On the
+    card the kernel reads x, bw_ind, near_nyquist and the encoder tables
+    (tab: tns_sub, lag_window, tns_sin, tns_bits, tns_step) as they are and
+    looks each stream's sub-blocks up itself; the wrapper checks attributes,
+    allocates the five outputs and launches."""
+    if x.device.type == "cpu":
+        return tns_coefficients_plain(tab, x, bw_ind, near_nyquist, lpc_weighting)
+    if x.device.type != "cuda":
+        raise ValueError(f"tns_coefficients: unsupported device {x.device}")
     S, ne = x.shape
-    index = x.get_device()
-    if (x.dtype != torch.float32 or sub.dtype != torch.int32 or sub.shape != (S, 2, 3, 2)
-            or sub.get_device() != index):
-        raise ValueError(f"tns_autocorr: x must be float32 [S, ne] and sub int32 [S, 2, 3, 2] "
-                         f"on {x.device}, got {x.dtype} {tuple(x.shape)}, {sub.dtype} "
-                         f"{tuple(sub.shape)} on {sub.device}")
-    if not x.is_contiguous():
-        x = x.contiguous()
-    if not sub.is_contiguous():
-        sub = sub.contiguous()
-    out = x.new_empty((S, 2, 3, 9))  # x's type and device, without parsing them again
-    _build.launch("lc3t_tns_autocorr", index, x.data_ptr(), sub.data_ptr(), out.data_ptr(), S, ne)
-    return out
+    _check("tns_coefficients", x, [("bw_ind", bw_ind, (S,), I32),
+                                   ("near_nyquist", near_nyquist, (S,), torch.bool),
+                                   ("tab.tns_sub", tab.tns_sub, (5, 2, 3, 2), I32),
+                                   ("tab.lag_window", tab.lag_window, (9,), torch.float32),
+                                   ("tab.tns_sin", tab.tns_sin, (17,), torch.float32),
+                                   ("tab.tns_bits", tab.tns_bits, (152,), I32),
+                                   ("tab.tns_step", tab.tns_step, (), torch.float32)])
+    if lpc_weighting not in (0, 1):
+        raise ValueError(f"tns_coefficients: lpc_weighting must be 0 or 1, got {lpc_weighting}")
+    args = [t if t.is_contiguous() else t.contiguous() for t in (x, bw_ind, near_nyquist)]
+    ac = x.new_empty((S, 2, 3, 9))
+    rc_i = bw_ind.new_empty((S, 16))
+    rc_q = x.new_empty((S, 16))
+    rc_order = bw_ind.new_empty((S, 2))
+    nbits_tns = bw_ind.new_empty((S,))
+    outs = (ac, rc_i, rc_q, rc_order, nbits_tns)
+    _build.launch("lc3t_tns_coefficients", x.get_device(), *[t.data_ptr() for t in args],
+                  *[t.data_ptr() for t in (tab.tns_sub, tab.lag_window, tab.tns_sin,
+                                           tab.tns_bits, tab.tns_step)],
+                  *[t.data_ptr() for t in outs], S, ne, lpc_weighting)
+    return outs
 
 
 # ---------------------------------------------------------- analysis lattice

@@ -332,7 +332,8 @@ def test_checkpoint_resumes_into_the_live_state(plan, kind, tmp_path):
 
 # the kernels' plain versions: the CPU path of each wrapper, never run on a card
 PLAIN = frozenset({"device_parse_plain", "tns_synthesis_plain", "ltpf_both_passes_plain",
-                   "sns_pvq_plain", "tns_autocorr_plain", "tns_analysis_plain",
+                   "sns_pvq_plain", "tns_autocorr_plain", "tns_coefficients_plain",
+                   "tns_analysis_plain",
                    "bitmodel_table_part_plain", "device_pack_plain"})
 HOST_READS = frozenset({"aten._local_scalar_dense.default", "aten.nonzero.default",
                         "aten.masked_select.default", "aten._unique2.default",

@@ -463,7 +463,6 @@ def tns_main(src: Path) -> int:
     from lc3jax_torch.config import FrameDuration, Lc3Config
     from lc3jax_torch.convert import decoder_tables
     from lc3jax_torch.dsp import decoder as D
-    from lc3jax_torch.serving import BatchEncoder
 
     card = cs.card_line()
     print(card, flush=True)
@@ -486,9 +485,8 @@ def tns_main(src: Path) -> int:
     tab = decoder_tables(cfg, 150 * 8, dev)
     fr = cdev.device_parse(cfg, 150, torch.as_tensor(bench["frames"][tile, 0], device=dev))
     cases = {"tns_synthesis": (tab, D.pre_tns(tab, fr), fr.bandwidth, fr.rc_order, fr.rc_i)}
-    enc = BatchEncoder(cfg, S, 150, device="cuda")
     cases["tns_analysis"] = cs.capture_kernel_inputs(
-        enc, torch.as_tensor(bench["pcm_in"][tile, 0], device=dev))["tns_analysis"]
+        cfg, torch.as_tensor(bench["pcm_in"][tile, 0], device=dev))["tns_analysis"]
     result = {"card": card, "ptxas": ptxas, "phases": {}, "alone": {}}
     for version, L in libs.items():
         for kern, args in cases.items():
@@ -616,7 +614,6 @@ def sns_main(src: Path) -> int:
     import chip_smoke as cs
     from lc3jax_torch import _build
     from lc3jax_torch.config import FrameDuration, Lc3Config
-    from lc3jax_torch.serving import BatchEncoder
 
     card = cs.card_line()
     print(card, flush=True)
@@ -632,7 +629,7 @@ def sns_main(src: Path) -> int:
     cfg = Lc3Config.new(48000, FrameDuration.MS10)
     bench = np.load(ROOT / "tests" / "goldens" / "torch_bench_content.npz")
     tile = np.arange(S) % 4
-    t2 = cs.capture_kernel_inputs(BatchEncoder(cfg, S, 150, device="cuda"),
+    t2 = cs.capture_kernel_inputs(cfg,
                                   torch.as_tensor(bench["pcm_in"][tile, 0], device=dev))["sns_pvq"][0]
     for version, L in libs.items():
         names = PVQ_SPECS[version][1]
@@ -699,7 +696,6 @@ def bitmodel_main(src: Path) -> int:
     import chip_smoke as cs
     from lc3jax_torch import _build
     from lc3jax_torch.config import FrameDuration, Lc3Config
-    from lc3jax_torch.serving import BatchEncoder
 
     card = cs.card_line()
     print(card, flush=True)
@@ -716,7 +712,7 @@ def bitmodel_main(src: Path) -> int:
     cfg = Lc3Config.new(48000, FrameDuration.MS10)
     bench = np.load(ROOT / "tests" / "goldens" / "torch_bench_content.npz")
     tile = np.arange(S) % 4
-    args = cs.capture_kernel_inputs(BatchEncoder(cfg, S, 150, device="cuda"),
+    args = cs.capture_kernel_inputs(cfg,
                                     torch.as_tensor(bench["pcm_in"][tile, 0], device=dev))["bitmodel_table_part"]
     for version, L in libs.items():
         for emit in (False, True):
@@ -735,14 +731,211 @@ def bitmodel_main(src: Path) -> int:
     return 0
 
 
+# The TNS coefficient kernel (csrc/tns_coefficients.cu), and the body it
+# replaced: the lag sums alone, a thread a (stream, filter, sub-block, lag)
+# folding from device memory (commit 0e22a86's csrc/tns_autocorr.cu), kept
+# here verbatim so that a checkout without git times it. The current
+# kernel's copy stamps, per (stream, filter) warp, its start, the end of
+# the staging, of the lag folds (after a __syncwarp, so the warp's longest
+# fold) and of the epilogue, as stamps[(s * 2 + f) * 4 + k], and writes the
+# unquantised reflection coefficient where rc_q goes, so that the recursion
+# is held op for op against tns_lpc_plain.
+PREV_AUTOCORR = r"""
+#include <cuda_runtime.h>
+namespace {
+__global__ void tns_autocorr_kernel(const float* __restrict__ x, const int* __restrict__ sub,
+                                    float* __restrict__ out, int S, int ne) {
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= S * 54) return;
+  const int s = tid / 54;
+  const int r = tid - 54 * s;  // (f * 3 + sb) * 9 + k
+  const int blk = r / 9;
+  const int k = r - 9 * blk;
+  const int lo = sub[12 * s + 2 * blk];
+  const int hi = sub[12 * s + 2 * blk + 1];
+  const float* xs = x + (size_t)s * ne;
+  float acc = 0.0f;
+  for (int n = lo; n + k < hi; ++n) acc = acc + xs[n] * xs[n + k];
+  out[tid] = acc;
+}
+}  // namespace
+extern "C" int lc3t_tns_autocorr(const float* x, const int* sub, float* out, int S, int ne,
+                                 void* stream) {
+  const int threads = 128;
+  const int blocks = (S * 54 + threads - 1) / threads;
+  tns_autocorr_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, sub, out, S, ne);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+COEF_PHASES = ("stage", "lag folds", "epilogue")
+CUR_COEF = [
+    ("int row, int lpc_weighting) {", "int row, int lpc_weighting, long long* __restrict__ stamps) {",
+     "replace"),
+    ("  __shared__ int s_bits[kStreams][2];\n", "  long long st_[4] = {0};\n  st_[0] = clock64();\n",
+     "after"),
+    ("  lc3t::wait_async_copies();\n  __syncthreads();\n", "  st_[1] = clock64();\n", "after"),
+    ("    if (lane < 27) ac[(size_t)s * 54 + f * 27 + lane] = acc;\n",
+     "    __syncwarp();\n    st_[2] = clock64();\n", "after"),
+    ("      s_bits[u][f] = exists ? add : 0;\n    }\n",
+     "    st_[3] = clock64();\n    if (lane == 0)\n      for (int k_ = 0; k_ < 4; ++k_) "
+     "stamps[((size_t)s * 2 + f) * 4 + k_] = st_[k_];\n", "after"),
+    ("exists ? tns_sin[ric] : 0.0f", "exists ? mine : 0.0f", "replace"),
+    ("int ne, int lpc_weighting, void* stream) {",
+     "int ne, int lpc_weighting, void* stream, long long* stamps) {", "replace"),
+    ("rc_order, nbits_tns, S, ne, row, lpc_weighting);",
+     "rc_order, nbits_tns, S, ne, row, lpc_weighting, stamps);", "replace"),
+]
+
+
+def build_coefficients(nvcc: str):
+    """(the instrumented current coefficient kernel, the previous lag-sum
+    body), each a ctypes library built with the port's nvcc flags in a
+    temporary directory."""
+    from lc3jax_torch import _build
+
+    cur = build_one(nvcc, _build.CSRC, "tns_coefficients", CUR_COEF, "current",
+                    [_P] * 13 + [_I] * 3 + [_P, _P])
+    tmp = Path(tempfile.mkdtemp())
+    (tmp / "tns_autocorr.cu").write_text(PREV_AUTOCORR)
+    so = tmp / "libprev_tns_autocorr.so"
+    r = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(tmp / "tns_autocorr.cu")],
+                       capture_output=True, text=True)
+    if r.returncode:
+        raise RuntimeError(f"kernel_phases: nvcc failed on the previous tns_autocorr:\n{r.stderr}")
+    prev = ctypes.CDLL(str(so))
+    prev.lc3t_tns_autocorr.argtypes = [_P] * 3 + [_I] * 2 + [_P]
+    return cur, prev
+
+
+def run_coefficients(L, args) -> "np.ndarray":
+    """One launch of the instrumented coefficient kernel on the wrapper's
+    arguments (tab, x, bw_ind, near_nyquist, lpc_weighting); checks ac,
+    rc_i, rc_order and nbits_tns equal to tns_coefficients_plain and the
+    unquantised coefficients in rc_q equal to tns_lpc_plain's, and returns
+    the stamps [S, 2, 4]."""
+    import torch
+
+    from lc3jax_torch.dsp import tns_enc_kernel as K
+
+    tab, x, bw, nn, lpc = args
+    S, ne = x.shape
+    want = K.tns_coefficients_plain(*args)
+    rc, _ = K.tns_lpc_plain(tab, want[0], nn, lpc)
+    exists = torch.arange(2, device=x.device)[None, :] < torch.where(bw >= 3, 2, 1)[:, None]
+    rc = torch.where(exists[:, :, None], rc, 0.0).reshape(S, 16)
+    outs = [torch.empty_like(t) for t in want]
+    stamps = torch.zeros(S, 2, 4, dtype=torch.int64, device=x.device)
+    ins = [t.contiguous() for t in (x, bw, nn, tab.tns_sub, tab.lag_window, tab.tns_sin,
+                                    tab.tns_bits, tab.tns_step)]
+    err = L.lc3t_tns_coefficients_phase(*[t.data_ptr() for t in ins + outs], S, ne, lpc,
+                                        torch.cuda.current_stream().cuda_stream, stamps.data_ptr())
+    if err:
+        raise RuntimeError(f"tns_coefficients_phase: CUDA error {err}")
+    torch.cuda.synchronize()
+    for i in (0, 1, 3, 4):
+        if not torch.equal(outs[i], want[i]):
+            raise AssertionError(f"instrumented tns_coefficients output {i} != plain")
+    if not torch.equal(outs[2], rc):
+        raise AssertionError("instrumented tns_coefficients: reflection coefficients != tns_lpc_plain")
+    return stamps.cpu().numpy()
+
+
+def coefficient_alone_cycles(L, args, streams=range(4)) -> list:
+    """[(lag folds, epilogue)] cycles of the chain (the two phases after
+    the staging) of each of `streams` alone on the card (S = 1), for the
+    filter whose chain is longer."""
+    per = []
+    for s in streams:
+        tab, x, bw, nn, lpc = args
+        st = run_coefficients(L, (tab, x[s : s + 1], bw[s : s + 1], nn[s : s + 1], lpc))[0]
+        f = int(np.argmax(st[:, 3] - st[:, 1]))
+        per.append((int(st[f, 2] - st[f, 1]), int(st[f, 3] - st[f, 2])))
+    return per
+
+
+def coefficient_chain(args):
+    """For chip_smoke.py: the chain cycles of the first four streams of the
+    encoder's arguments `args` alone (coefficient_alone_cycles), and a
+    function that launches the previous lag-sum body on the same x and
+    sub-blocks (one launch a call, on the current stream)."""
+    import torch
+
+    from lc3jax_torch import _build
+
+    L, prev = build_coefficients(_build.find_nvcc())
+    tab, x, bw = args[:3]
+    sub = tab.tns_sub[bw.long()].contiguous()
+    xc = x.contiguous()
+    out = xc.new_empty((x.shape[0], 2, 3, 9))
+
+    def prev_body():
+        err = prev.lc3t_tns_autocorr(xc.data_ptr(), sub.data_ptr(), out.data_ptr(), x.shape[0],
+                                     x.shape[1], torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"previous tns_autocorr: CUDA error {err}")
+        return out
+
+    return coefficient_alone_cycles(L, args), prev_body
+
+
+def coefficients_main() -> int:
+    import torch
+
+    import chip_smoke as cs
+    from lc3jax_torch import _build
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.dsp import tns_enc_kernel as K
+
+    card = cs.card_line()
+    print(card, flush=True)
+    nvcc = _build.find_nvcc()
+    tmp = Path(tempfile.mkdtemp())
+    (tmp / "tns_autocorr.cu").write_text(PREV_AUTOCORR)
+    ptxas = {"previous tns_autocorr": ptxas_lines(nvcc, tmp / "tns_autocorr.cu"),
+             "current tns_coefficients": ptxas_lines(nvcc, _build.CSRC / "tns_coefficients.cu")}
+    for k, v in ptxas.items():
+        print(f"ptxas {k}: {v}", flush=True)
+    L, _ = build_coefficients(nvcc)
+    cfg = Lc3Config.new(48000, FrameDuration.MS10)
+    bench = np.load(ROOT / "tests" / "goldens" / "torch_bench_content.npz")
+    tile = np.arange(S) % 4
+    args = cs.capture_kernel_inputs(cfg, torch.as_tensor(bench["pcm_in"][tile, 0], device="cuda"))[
+        "tns_coefficients"]
+    st = run_coefficients(L, args).reshape(S * 2, 4)
+    d = np.diff(st, axis=1)
+    result = {"card": card, "ptxas": ptxas,
+              "phases": {k: [float(np.median(d[:, i])), int(d[:, i].max())]
+                         for i, k in enumerate(COEF_PHASES)}}
+    result["alone"], prev_body = coefficient_chain(args)
+    kern = lambda: K.tns_coefficients(*args)
+    result["event_ms"] = dict(zip(("current", "previous"), cs.cuda_ms_pair(kern, prev_body, 200)))
+    result["device_ms"] = {"current": cs.device_ms(kern, "tns_coefficients_kernel"),
+                           "previous": cs.device_ms(prev_body, "tns_autocorr_kernel")}
+    result["sm_clock"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True).stdout.strip()
+    print(f"tns_coefficients, S={S}, cycles a (stream, filter) warp, median (max): "
+          + "; ".join(f"{k} {v[0]:.0f} ({v[1]})" for k, v in result["phases"].items()))
+    print("one stream alone, (lag folds, epilogue) cycles: " + ", ".join(map(str, result["alone"])))
+    print(f"event ms (alternated, median of 200): {result['event_ms']}; device ms: "
+          f"{result['device_ms']}; SM clock {result['sm_clock']}")
+    print(json.dumps(result))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--src", type=Path, required=True,
-                    help="directory with the previous kernels' sources")
-    ap.add_argument("--kernels", choices=("range", "tns", "sns", "bitmodel"), default="range",
+    ap.add_argument("--src", type=Path,
+                    help="directory with the previous kernels' sources (every mode but "
+                         "coefficients, which carries its previous body)")
+    ap.add_argument("--kernels", choices=("range", "tns", "sns", "bitmodel", "coefficients"),
+                    default="range",
                     help="the range coders (parse, pack), the TNS lattices, the SNS PVQ "
-                         "search or the bit model")
+                         "search, the bit model or the TNS coefficient kernel")
     args = ap.parse_args()
+    if args.src is None and args.kernels != "coefficients":
+        ap.error("--src is required for --kernels " + args.kernels)
 
     import torch
 
@@ -751,6 +944,8 @@ def main() -> int:
         return 1
     if args.kernels == "tns":
         return tns_main(args.src)
+    if args.kernels == "coefficients":
+        return coefficients_main()
     if args.kernels == "sns":
         return sns_main(args.src)
     if args.kernels == "bitmodel":

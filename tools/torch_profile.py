@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of one lc3jax_torch step goes on a CUDA card.
 
-    python3 tools/torch_profile.py [--streams 2048] [--steps 10]
+    python3 tools/torch_profile.py [--streams 2048] [--steps 10] [--tree DIR]
 
 For the fused decode step (`BatchDecoder.decode_tensor`), the encode DSP
 step (`BatchEncoder.encode_fields_tensor`) and the fused encode step
@@ -23,9 +23,14 @@ over the streams, after warm-up:
   copy of the fields to the host and the C++ packer, each a median of
   `steps` calls.
 
-The three serving steps run as replayed CUDA graphs (`compiled.py`); the
-same lines follow for the eager step functions (`decode_eager`,
-`encode_dsp_eager`, `encode_fused_eager`, from a fixed state).
+The three serving steps run as replayed CUDA graphs (`compiled.py`), each
+line with its graph's nodes; the same lines follow for the eager step
+functions (`decode_eager`, `encode_dsp_eager`, `encode_fused_eager`, from
+a fixed state).
+
+--tree DIR profiles the lc3jax_torch of another checkout (an older commit
+unpacked with `git archive` into a directory `.gitignore` lists) with this
+script's measurement, so that two versions compare in one call.
 
 Prints one line per step kind and ends with one JSON object. Needs a card;
 without one it exits non-zero.
@@ -165,7 +170,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--streams", type=int, default=2048)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--tree", type=Path, default=ROOT, help="checkout whose lc3jax_torch to profile")
     args = ap.parse_args()
+    sys.path.insert(0, str(args.tree.resolve()))
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device", file=sys.stderr)
         return 1
@@ -196,14 +203,20 @@ def main() -> int:
                 "decode_eager": lambda: decode_bytes_step_stats(cfg, NBYTES, st_d, pay),
                 "encode_dsp_eager": lambda: encode_step(cfg, NBYTES, st_e, pcm),
                 "encode_fused_eager": lambda: encode_bytes_step(cfg, NBYTES, st_e, pcm)}
-    out = {"card": card, "streams": S, "steps": steps}
+    import lc3jax_torch
+
+    out = {"card": card, "streams": S, "steps": steps, "tree": str(Path(lc3jax_torch.__file__).parent)}
+    coders = {"decode": dec, "encode_dsp": enc, "encode_fused": fenc}
     for name, fn in steps_of.items():
         for _ in range(3):
             fn()
         wall = wall_ms(fn, steps)
         prof = device_profile(fn, steps)
-        out[name] = dict(wall_ms=wall, busy_share=prof["busy_ms"] / wall, **prof)
-        print(f"[{name}] {card}, S={S}: wall {wall:.3f} ms/step, device busy "
+        nodes = (sum(sum(s.node_counts()) for s in coders[name].steps.values())
+                 if name in coders else None)
+        out[name] = dict(wall_ms=wall, busy_share=prof["busy_ms"] / wall, graph_nodes=nodes, **prof)
+        print(f"[{name}] {card}, S={S}: {'' if nodes is None else f'{nodes} graph nodes, '}"
+              f"wall {wall:.3f} ms/step, device busy "
               f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_ms'] / wall:.1f}%), "
               f"{prof['launches']:.0f} device launches/step; top: " + "; ".join(
                   f"{n} {ms:.4f} ms" for n, ms in prof["top"]), flush=True)
