@@ -23,6 +23,9 @@ is no fallback for a CUDA tensor.
 Each C entry point launches on the stream it is given, allocates nothing and
 returns `cudaGetLastError()`; `check` turns a non-zero code into an error.
 Pointers and the stream are passed as `ctypes.c_void_p`, ints as `c_int`.
+
+The nvcc run and the library's load are the process's set-up spans
+`kernels.build` and `kernels.load` (`metrics.process_spans`).
 """
 
 from __future__ import annotations
@@ -33,7 +36,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -56,7 +58,7 @@ SIGNATURES = {
 }
 
 _lib = None
-build_seconds: float | None = None  # wall time of the last nvcc run (None: cached)
+build_seconds: float | None = None  # the last kernels.build span, s (None: cached)
 
 
 def find_nvcc() -> str | None:
@@ -92,20 +94,22 @@ def build() -> Path:
             f"{CUDA_DEFAULT}/bin); the CUDA kernels cannot be built, and a "
             "CUDA tensor has no plain fallback"
         )
+    from .metrics import process_span
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     objs = [out.with_name(f"{out.stem}.{src.stem}.{os.getpid()}.o")
             for src in sorted(CSRC.glob("*.cu"))]
-    t0 = time.perf_counter()
-    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
-                for o, src in zip(objs, sorted(CSRC.glob("*.cu")))]
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for cmd in compiles]
-    results = [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(compiles, procs)]
-    link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
-    if all(rc == 0 for _, _, rc in results):
-        res = subprocess.run(link, capture_output=True, text=True)
-        results.append((link, res.stdout + res.stderr, res.returncode))
+    with process_span("kernels.build") as built:
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                    for o, src in zip(objs, sorted(CSRC.glob("*.cu")))]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in compiles]
+        results = [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(compiles, procs)]
+        link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+        if all(rc == 0 for _, _, rc in results):
+            res = subprocess.run(link, capture_output=True, text=True)
+            results.append((link, res.stdout + res.stderr, res.returncode))
     for o in objs:
         o.unlink(missing_ok=True)
     for cmd, text, rc in results:
@@ -114,7 +118,7 @@ def build() -> Path:
                 f"lc3jax_torch: nvcc failed with code {rc}:\n{' '.join(cmd)}\n{text}"
             )
     os.replace(tmp, out)
-    build_seconds = time.perf_counter() - t0
+    build_seconds = built.span.ms / 1e3
     return out
 
 
@@ -122,13 +126,17 @@ def lib() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     if _lib is None:
-        L = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(L, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        L.lc3t_error_string.argtypes = [ctypes.c_int]
-        L.lc3t_error_string.restype = ctypes.c_char_p
+        from .metrics import process_span
+
+        path = build()
+        with process_span("kernels.load"):
+            L = ctypes.CDLL(str(path))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(L, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            L.lc3t_error_string.argtypes = [ctypes.c_int]
+            L.lc3t_error_string.restype = ctypes.c_char_p
         _lib = L
     return _lib
 

@@ -64,6 +64,14 @@ stream, so no graph reads what another wrote.
 On the CPU, which only a caller asking for it reaches, the same copy-in and
 copy-out plumbing runs with an eager call of fn in place of the replay.
 
+Spans (`metrics.py`), into the cache's recorder (a serving coder's
+`metrics`), under the call's root span where one is open: `step.copy_in`
+(the inputs copied into the static inputs), `step.replay` (the replay and
+the launch counts; on the CPU, the eager call), with the replay's time on
+the card on one call in `metrics.EDGE_EVERY`; and at a graph's first call
+the set-up span `step.capture` (its `capture_ms`), keyed by the step's
+key, with children `step.warmup`, `step.graph` and `step.instantiate`.
+
 Launch counters: `_build.launch` counts each kernel launch in
 `_build.launches`, and a replay calls no wrapper. So each graph records
 the counts its capture made and adds them again on every replay; the
@@ -83,6 +91,7 @@ import torch
 
 from . import _build
 from .devices import resolve_device
+from .metrics import CodecMetrics, Span
 
 WARMUP = 2  # eager runs on the capture stream before a capture
 
@@ -211,10 +220,13 @@ class StepCache:
     `state` (optional) is pinned as the cache's slot for its shapes, as it
     is: a serving coder hands in its fresh `decoder_init` / `encoder_init`
     state. Any other state is copied into a free slot of its shapes, or a
-    new one (see the module's docstring)."""
+    new one (see the module's docstring). `metrics` is the recorder the
+    steps' spans go into (a serving coder's; one of the cache's own when
+    None)."""
 
-    def __init__(self, device, state=None):
+    def __init__(self, device, state=None, metrics: CodecMetrics | None = None):
         self.device = resolve_device(device)
+        self.metrics = CodecMetrics() if metrics is None else metrics
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.on_card = self.device.type == "cuda"
@@ -301,7 +313,12 @@ class _Graph:
     outputs: tuple | None = None  # the graph's output trees
     graph: object = None  # torch.cuda.CUDAGraph
     counts: dict = dataclasses.field(default_factory=dict)  # launches a replay
-    capture_ms: float = 0.0  # warm-up, capture and instantiation, host wall
+    capture: Span | None = None  # the step.capture span: warm-up, capture, instantiation
+
+    @property
+    def capture_ms(self) -> float:
+        """The capture's host wall ms (0 on the CPU, where nothing is captured)."""
+        return 0.0 if self.capture is None else self.capture.ms
 
 
 class CompiledStep:
@@ -348,6 +365,7 @@ class CompiledStep:
 
     def _run(self, state, inputs: tuple):
         cache = self.cache
+        rec = cache.metrics
         slot, copied = cache.adopt(state)
         self.state_copies += copied
         static = slot.static
@@ -359,49 +377,58 @@ class CompiledStep:
                 self._capture(g, static)
             self._graphs[key] = g
         else:
+            t = time.time_ns()
             _copy_into(inputs, g.inputs)
+            rec.span("step.copy_in", t)
         self._last = g
+        t = time.time_ns()
         if cache.on_card:
+            edge = rec.edge_start(cache.device)
             g.graph.replay()
+            if edge is not None:
+                edge[0][1].record()
             _build.launches.update(g.counts)
+            rec.span("step.replay", t, edge)
         else:
             out = self.fn(static, *g.inputs)
             _store(out[0], static)
             g.outputs = tuple(out[1:])
+            rec.span("step.replay", t)
         self.calls += 1
         return slot.hand(), g.outputs
 
     def _capture(self, g: _Graph, static) -> None:
         cache = self.cache
-        t0 = time.perf_counter()
+        rec = cache.metrics
         before = _build.launches.copy()
-        try:
-            stream = cache.capture_stream()
-            with torch.cuda.stream(stream):
-                for _ in range(WARMUP):  # from copies: the static state does not move
-                    self.fn(tree_map(torch.clone, static), *tree_map(torch.clone, g.inputs))
-            warm = _build.launches.copy()
-            graph = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(graph, pool=cache.pool, stream=stream,
-                                  capture_error_mode="thread_local"):
-                mode = torch.cuda.get_sync_debug_mode()
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    out = self.fn(static, *g.inputs)
-                    _store(out[0], static)
-                finally:
-                    torch.cuda.set_sync_debug_mode(mode)
-            graph.instantiate()
-            after = _build.launches.copy()
-        finally:  # warm-up and capture launches not counted
-            _build.launches.clear()
-            _build.launches.update(before)
-        counts = after - warm
-        if warm - before != collections.Counter({k: WARMUP * n for k, n in counts.items()}):
-            raise RuntimeError(f"{self.key}: the warm-up and the capture launched different "
-                               f"kernels ({warm} after {before}, then {after})")
-        g.outputs, g.graph, g.counts = tuple(out[1:]), graph, counts
-        g.capture_ms = (time.perf_counter() - t0) * 1e3
+        with rec.setup("step.capture", key=self.key) as cap:
+            try:
+                stream = cache.capture_stream()
+                with rec.setup("step.warmup", cap.id, self.key), torch.cuda.stream(stream):
+                    for _ in range(WARMUP):  # from copies: the static state does not move
+                        self.fn(tree_map(torch.clone, static), *tree_map(torch.clone, g.inputs))
+                warm = _build.launches.copy()
+                graph = torch.cuda.CUDAGraph(keep_graph=True)
+                with rec.setup("step.graph", cap.id, self.key), torch.cuda.graph(
+                        graph, pool=cache.pool, stream=stream, capture_error_mode="thread_local"):
+                    mode = torch.cuda.get_sync_debug_mode()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        out = self.fn(static, *g.inputs)
+                        _store(out[0], static)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(mode)
+                with rec.setup("step.instantiate", cap.id, self.key):
+                    graph.instantiate()
+                after = _build.launches.copy()
+            finally:  # warm-up and capture launches not counted
+                _build.launches.clear()
+                _build.launches.update(before)
+            counts = after - warm
+            if warm - before != collections.Counter({k: WARMUP * n for k, n in counts.items()}):
+                raise RuntimeError(f"{self.key}: the warm-up and the capture launched different "
+                                   f"kernels ({warm} after {before}, then {after})")
+        g.outputs, g.graph, g.counts, g.capture = tuple(out[1:]), graph, counts, cap.span
         self.captures += 1
 
     def node_counts(self) -> list:

@@ -1,6 +1,6 @@
 """Profiling hooks (port of lc3jax/profiling.py): a trace of a region, a
-step's device time and a loop's device span from `torch.profiler`, and a
-host wall timer.
+step's device time and a loop's device span from `torch.profiler`. (The
+host's own spans, with no profiler running, are `metrics.py`'s.)
 
 What "device activity" is: on a machine with a card, the card's kernel,
 copy and fill intervals on its own clock; on a machine without one, the
@@ -46,7 +46,6 @@ import time
 import torch
 
 from . import _build
-from .parallel import tree_leaves
 
 STEP_MARK = "lc3jax_torch::step"
 MARGIN_S = 0.05  # the host's wait after a recording starts and before it stops
@@ -272,26 +271,3 @@ def device_step_ms(step_fn, init_carry, step_args, steps: int = 10) -> float:
     busy = sorted(union_ms(s) for s in call_spans(one, steps))
     return busy[len(busy) // 2]
 
-
-class StepTimer:
-    """Host wall time per step, for quick triage: the result's cards are
-    synchronised after the step (nothing is for CPU tensors)."""
-
-    def __init__(self):
-        self.times_ms: list[float] = []
-
-    @contextlib.contextmanager
-    def measure(self, result_getter=None):
-        t0 = time.perf_counter()
-        yield
-        if result_getter is not None:
-            cards = {x.device for x in tree_leaves(result_getter())
-                     if isinstance(x, torch.Tensor) and x.is_cuda}
-            for d in cards:
-                torch.cuda.synchronize(d)
-        self.times_ms.append((time.perf_counter() - t0) * 1e3)
-
-    @property
-    def median_ms(self) -> float:
-        s = sorted(self.times_ms)
-        return s[len(s) // 2] if s else 0.0

@@ -14,12 +14,21 @@ nbytes. `state` is that static state: the next call overwrites it, and
 assigning a state copies it in. A result that stays on the card is a
 tensor of its own (the graph's output cloned once); one fetched to the host
 is read straight from the graph's output.
+
+`metrics` (metrics.CodecMetrics) counts each call and each host read of a
+device value (`host_syncs`), and records spans: `decode` (device parse) and
+`encode` open a root span, `serve.decode` or `serve.encode`, with children
+`serve.upload` (the host array to the card), the compiled step's
+`step.copy_in` and `step.replay`, `serve.fetch` (the wait for the card and
+the copy of the PCM or the frames to the host) and, decoding,
+`serve.plc_count` (the concealed-frame count read).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 
 import numpy as np
 import torch
@@ -60,9 +69,10 @@ class BatchDecoder:
         self.nbytes = nbytes
         self.device_parse = device_parse
         self.device = resolve_device(device)
-        self._steps = StepCache(self.device, decoder_init(cfg, n_streams, self.device))
-        self._parser = None if device_parse else HostParser(cfg, self.device)
         self.metrics = CodecMetrics()
+        self._steps = StepCache(self.device, decoder_init(cfg, n_streams, self.device),
+                                self.metrics)
+        self._parser = None if device_parse else HostParser(cfg, self.device)
         self._frame_seconds = cfg.nf / cfg.fs
 
     @property
@@ -108,6 +118,7 @@ class BatchDecoder:
         self._check(payloads)
         _, pcm, n_bad = self._step("stats", payloads.shape[1])(self.state, payloads)
         # the concealed-frame count keeps plc_rate observable on the fused path
+        self.metrics.host_syncs += 1
         self.metrics.record_decode(self.n_streams, self._frame_seconds, n_bad=int(n_bad))
         return pcm
 
@@ -138,6 +149,7 @@ class BatchDecoder:
         bufs = step.buffers()
         frames = self._parser.upload(slot, into=bufs[0] if bufs else None)
         _, pcm = (step.run if fetch else step)(self.state, frames)
+        self.metrics.host_syncs += fetch
         self.metrics.record_decode(self.n_streams, self._frame_seconds, n_bad=n_bad)
         return pcm.cpu().numpy() if fetch else pcm
 
@@ -148,6 +160,7 @@ class BatchDecoder:
         x = self._to_device(payloads)
         step = self._step("fused", x.shape[1])
         _, pcm = (step.run if fetch else step)(self.state, x)
+        self.metrics.host_syncs += fetch
         self.metrics.record_decode(self.n_streams, self._frame_seconds)
         return pcm.cpu().numpy() if fetch else pcm
 
@@ -157,12 +170,25 @@ class BatchDecoder:
         preserved)."""
         if not self.device_parse:
             return self._decode_parsed(*self._host_parse(payloads))
-        self._check(payloads)
-        _, pcm, n_bad = self._step("stats", payloads.shape[1]).run(
-            self.state, self._to_device(payloads))
-        out = pcm.cpu().numpy()
-        self.metrics.record_decode(self.n_streams, self._frame_seconds, n_bad=int(n_bad))
-        return out
+        m = self.metrics
+        t_call = m.begin()
+        try:
+            self._check(payloads)
+            t = time.time_ns()
+            x = self._to_device(payloads)
+            m.span("serve.upload", t)
+            _, pcm, n_bad = self._step("stats", payloads.shape[1]).run(self.state, x)
+            t = time.time_ns()
+            out = pcm.cpu().numpy()
+            m.span("serve.fetch", t)
+            t = time.time_ns()
+            n_bad = int(n_bad)
+            m.span("serve.plc_count", t)
+            m.host_syncs += 2
+            m.record_decode(self.n_streams, self._frame_seconds, n_bad=n_bad)
+            return out
+        finally:
+            m.end("serve.decode", t_call)
 
     def decode_stream(self, payload_batches, fetch: bool = True, pipeline: bool = False,
                       chunk_frames: int = 0) -> list:
@@ -246,6 +272,7 @@ class BatchDecoder:
                 x = self._to_device(np.stack(chunk))
                 step = self._step("chunk", x.shape[2], T)
                 _, pcm = (step.run if fetch else step)(self.state, x)
+                self.metrics.host_syncs += fetch
                 self.metrics.record_decode(self.n_streams * T, self._frame_seconds)
                 outs.extend(pcm.cpu().numpy() if fetch else pcm.unbind(0))
                 return
@@ -282,8 +309,9 @@ class BatchEncoder:
         self.nbytes = nbytes
         self.device_pack = device_pack
         self.device = resolve_device(device)
-        self._steps = StepCache(self.device, encoder_init(cfg, n_streams, self.device))
         self.metrics = CodecMetrics()
+        self._steps = StepCache(self.device, encoder_init(cfg, n_streams, self.device),
+                                self.metrics)
         self._frame_seconds = cfg.nf / cfg.fs
 
     @property
@@ -339,11 +367,25 @@ class BatchEncoder:
         change per call (variable bitrate mid-stream, state preserved: the
         encoder state does not depend on it)."""
         nbytes = self.nbytes if nbytes is None else nbytes
-        x = torch.as_tensor(np.ascontiguousarray(pcm, np.int16)).to(self.device)
-        self._check(x)
-        # the graph's outputs fetched to the host at once, not cloned
-        _, out = self._step("bytes" if self.device_pack else "fields", nbytes).run(self.state, x)
-        self.metrics.record_encode(self.n_streams, self._frame_seconds)
-        if self.device_pack:
-            return out.cpu().numpy()
-        return host_pack.pack_frames(self.cfg, encoder_fields_to_numpy(out), nbytes)
+        m = self.metrics
+        t_call = m.begin()
+        try:
+            t = time.time_ns()
+            x = torch.as_tensor(np.ascontiguousarray(pcm, np.int16)).to(self.device)
+            m.span("serve.upload", t)
+            self._check(x)
+            # the graph's outputs fetched to the host at once, not cloned
+            _, out = self._step("bytes" if self.device_pack else "fields", nbytes).run(
+                self.state, x)
+            m.record_encode(self.n_streams, self._frame_seconds)
+            if not self.device_pack:
+                fields = encoder_fields_to_numpy(out)
+                m.host_syncs += sum(isinstance(v, torch.Tensor) for v in out.values())
+                return host_pack.pack_frames(self.cfg, fields, nbytes)
+            t = time.time_ns()
+            frames = out.cpu().numpy()
+            m.span("serve.fetch", t)
+            m.host_syncs += 1
+            return frames
+        finally:
+            m.end("serve.encode", t_call)

@@ -60,10 +60,11 @@ assert frame == g["payloads"][0].tobytes()
 assert Lc3Decoder(1, lc3jax_torch.FrameDuration.MS10, 48000, device="cpu").decode_frame(
     16, 0, b"").shape == (480,)
 assert decoder_ram_bytes(1, lc3jax_torch.FrameDuration.MS10, 48000) == 27564
-timer = profiling.StepTimer()
-with timer.measure(lambda: sharded):
-    sharded.gather()
-assert timer.median_ms > 0
+rec = BatchDecoder(cfg, 2, 120, device="cpu")
+rec.decode(g["payloads"][:2])
+spans = rec.metrics.spans("serve.decode", "step.replay")
+assert [s.name for s in spans] == ["serve.decode", "step.replay"] and spans[0].ms > 0
+assert profiling.union_ms([]) == 0.0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] == "lc3jax" or m.split(".")[0].startswith("jax"))
 assert not loaded, loaded
@@ -75,8 +76,8 @@ def test_package_decodes_without_importing_jax():
     """A decode (fused and host-parse), a pipelined decode_stream, an encode
     (host pack and fused), a checkpoint round trip, a decode sharded in two
     with `parallel` and `profiling` imported, a `make_decode_step`
-    (`compiled`) and the `api` facade, on the CPU, load no lc3jax and no
-    jax module."""
+    (`compiled`), the `api` facade and a decode's spans (`metrics`), on the
+    CPU, load no lc3jax and no jax module."""
     res = subprocess.run([sys.executable, "-c", _CODEC_WITHOUT_JAX], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr

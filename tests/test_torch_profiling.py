@@ -1,8 +1,7 @@
 """lc3jax_torch.profiling on the CPU, where "device activity" is the host's
 op intervals (lc3jax's host-lane fallback): a trace file is written, a
 step's busy time lies within its host wall, a loop's span covers its
-steps, an empty profile is taken again and then raises, and StepTimer
-gives the median."""
+steps, and an empty profile is taken again and then raises."""
 
 import json
 import time
@@ -94,13 +93,3 @@ def test_profile_without_the_expected_activity_raises():
 def test_union_ms_counts_overlaps_once():
     assert profiling.union_ms([(0, 1000, "a"), (500, 1500, "b"), (3000, 3500, "c")]) == 2.0
     assert profiling.union_ms([]) == 0.0
-
-
-def test_step_timer_median():
-    timer = profiling.StepTimer()
-    assert timer.median_ms == 0.0
-    timer.times_ms = [5.0, 1.0, 3.0]
-    assert timer.median_ms == 3.0
-    with timer.measure(lambda: {"pcm": torch.zeros(2)}):
-        time.sleep(0.002)
-    assert len(timer.times_ms) == 4 and timer.times_ms[-1] >= 2.0
