@@ -3,9 +3,11 @@ counters and the port's one recorder of spans.
 
 Counters (`CodecMetrics`) are cheap host-side counts fed from values the
 pipeline already has (no extra device work): calls, frames decoded and
-encoded, concealed frames, audio seconds, and the host's reads of a device
-value (`host_syncs`, each of which waits for the card). `reset()` starts a
-new window.
+encoded, concealed frames, audio seconds, the host's reads of a device
+value (`host_syncs`, each of which waits for the card), and the calls that
+missed their frame's deadline (`late_calls`: a root span longer than the
+audio one frame of a stream carries, which the coder passes to `end`).
+`reset()` starts a new window.
 
 Spans are a flight recorder, on by default. A span is a `Span` record:
 its name, its start and end on the clock of torch.profiler's host events
@@ -30,7 +32,7 @@ would count as device activity.
 
 `SPANS_ON = False`, set on this module, stops the hot path's spans and
 device edges (to measure what they cost: `tools/span_cost.py`); counters
-and set-up spans go on.
+but `late_calls`, which reads the root span, and set-up spans go on.
 """
 
 from __future__ import annotations
@@ -116,6 +118,7 @@ class CodecMetrics:
     audio_seconds: float = 0.0
     calls: int = 0  # batch calls: one a decode, encode or chunk
     host_syncs: int = 0  # host reads of a device value (each waits for the card)
+    late_calls: int = 0  # calls whose root span outlasted the frame passed to `end`
     _start: float = field(default_factory=time.perf_counter)
     # a call's spans: [root id, profiled, (root name, start, end), (name, start, end,
     # id, edge) of each child]; a span outside any call: [None, profiled, None, child]
@@ -141,7 +144,7 @@ class CodecMetrics:
         """Start a new window: every count to 0 and `wall_seconds` from now.
         The spans are kept."""
         self.frames_decoded = self.frames_encoded = self.plc_frames = 0
-        self.calls = self.host_syncs = 0
+        self.calls = self.host_syncs = self.late_calls = 0
         self.audio_seconds = 0.0
         self._start = time.perf_counter()
 
@@ -164,13 +167,17 @@ class CodecMetrics:
             self._ring.append([None, _profiler._is_profiler_enabled, None,
                                (name, start_ns, time.time_ns(), next(_ids), edge)])
 
-    def end(self, name: str, start_ns: int) -> None:
-        """Close the root span opened by `begin` and keep the call's spans."""
+    def end(self, name: str, start_ns: int, frame_s: float = float("inf")) -> None:
+        """Close the root span opened by `begin` and keep the call's spans;
+        count the call late where it took longer than frame_s, the seconds
+        of audio one frame of a stream carries."""
         o = self._open
         if o is not None:
-            o[2] = (name, start_ns, time.time_ns())
+            end_ns = time.time_ns()
+            o[2] = (name, start_ns, end_ns)
             self._ring.append(o)
             self._open = None
+            self.late_calls += end_ns - start_ns > frame_s * 1e9
 
     def setup(self, name: str, parent: int | None = None, key=None) -> SetupSpan:
         """A set-up span of this recorder, kept outside the ring; `with` it."""
@@ -239,6 +246,7 @@ class CodecMetrics:
         return {
             "calls": self.calls,
             "host_syncs": self.host_syncs,
+            "late_calls": self.late_calls,
             "frames_decoded": self.frames_decoded,
             "frames_encoded": self.frames_encoded,
             "plc_frames": self.plc_frames,

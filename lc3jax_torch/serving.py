@@ -188,7 +188,7 @@ class BatchDecoder:
             m.record_decode(self.n_streams, self._frame_seconds, n_bad=n_bad)
             return out
         finally:
-            m.end("serve.decode", t_call)
+            m.end("serve.decode", t_call, self._frame_seconds)
 
     def decode_stream(self, payload_batches, fetch: bool = True, pipeline: bool = False,
                       chunk_frames: int = 0) -> list:
@@ -388,4 +388,4 @@ class BatchEncoder:
             m.host_syncs += 1
             return frames
         finally:
-            m.end("serve.encode", t_call)
+            m.end("serve.encode", t_call, self._frame_seconds)

@@ -31,8 +31,8 @@ a fixed state).
 
 --stages prints only the encode stages' device split (`encode_stage_device`)
 of the eager encode step at the benchmark cells' settings, 48 kHz / 10 ms /
-120 B and 16 kHz / 10 ms / 40 B, on the bench content cut into each rate's
-frames.
+120 B, 16 kHz / 10 ms / 40 B and 48 kHz / 7.5 ms / 75 B, on the bench
+content cut into each setting's frames.
 
 --tree DIR profiles the lc3jax_torch of another checkout (an older commit
 unpacked with `git archive` into a directory `.gitignore` lists) with this
@@ -170,15 +170,16 @@ def encode_stage_device(fn, steps: int) -> dict:
     return {name: profiling.union_ms(spans[name]) / steps for name in ENCODE_STAGES}
 
 
-def stages_only(card: str, S: int, steps: int, fs: int, nbytes: int) -> None:
-    """encode_stage_device of the eager encode step at fs / 10 ms / nbytes."""
+def stages_only(card: str, S: int, steps: int, fs: int, dur, nbytes: int) -> None:
+    """encode_stage_device of the eager encode step at fs / dur (a FrameDuration) /
+    nbytes."""
     import torch
 
     import lc3jax_torch
-    from lc3jax_torch.config import FrameDuration, Lc3Config
+    from lc3jax_torch.config import Lc3Config
     from lc3jax_torch.dsp.encoder import encode_step, encoder_init
 
-    cfg = Lc3Config.new(fs, FrameDuration.MS10)
+    cfg = Lc3Config.new(fs, dur)
     bench = np.load(ROOT / "tests" / "goldens" / "torch_bench_content.npz")
     rows = bench["pcm_in"].reshape(4, -1)[:, : 2 * cfg.nf].reshape(4, 2, cfg.nf)
     dev = torch.device("cuda")
@@ -190,12 +191,12 @@ def stages_only(card: str, S: int, steps: int, fs: int, nbytes: int) -> None:
         fn()
     stage_dev = encode_stage_device(fn, steps)
     tree = str(Path(lc3jax_torch.__file__).parent)
-    print(f"[encode-stages-device] {card}, S={S}, {fs} Hz / 10 ms / {nbytes} B, {tree}, device "
-          "busy per step: " + "; ".join(
+    print(f"[encode-stages-device] {card}, S={S}, {fs} Hz / {dur.value} / {nbytes} B, {tree}, "
+          "device busy per step: " + "; ".join(
               f"{n} {ms:.3f} ms" for n, ms in sorted(stage_dev.items(), key=lambda kv: -kv[1]))
           + f" (sum {sum(stage_dev.values()):.3f} ms)", flush=True)
-    print(json.dumps({"card": card, "streams": S, "steps": steps, "fs": fs, "nbytes": nbytes,
-                      "tree": tree, "encode_stages_device_ms": stage_dev}))
+    print(json.dumps({"card": card, "streams": S, "steps": steps, "fs": fs, "frame": dur.value,
+                      "nbytes": nbytes, "tree": tree, "encode_stages_device_ms": stage_dev}))
 
 
 def main() -> int:
@@ -224,8 +225,9 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     S, steps = args.streams, args.steps
     if args.stages:
-        for fs, nbytes in ((48000, 120), (16000, 40)):
-            stages_only(card, S, steps, fs, nbytes)
+        for fs, dur, nbytes in ((48000, FrameDuration.MS10, 120), (16000, FrameDuration.MS10, 40),
+                                (48000, FrameDuration.MS7P5, 75)):
+            stages_only(card, S, steps, fs, dur, nbytes)
         return 0
     cfg = Lc3Config.new(48000, FrameDuration.MS10)
     bench = np.load(ROOT / "tests" / "goldens" / "torch_bench_content.npz")
