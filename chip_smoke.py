@@ -16,7 +16,7 @@ for eager steps. Phase 11 holds those records against the kernels
 torch.profiler sees in a replay of every graph:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
-2. build: the nine kernels from lc3jax_torch/csrc, one nvcc per source, all
+2. build: the ten kernels from lc3jax_torch/csrc, one nvcc per source, all
    at once, then the host packer (native/lc3_bitstream.cc);
 3. kernels: each decode kernel against its plain PyTorch version on the
    card: parse on encoded frames mixed with random garbage (all 19 fields
@@ -30,10 +30,13 @@ torch.profiler sees in a replay of every graph:
    random-state stress inputs at 48 kHz / 10 ms, 48 kHz / 7.5 ms and
    8 kHz / 10 ms (S = 2048), at 48 kHz / 10 ms with S = 2047 and S = 1,
    and on the arguments the decode step gives it for the bench content;
-4. enc-kernels: the five encoder kernels against their plain versions, on
+4. enc-kernels: the six encoder kernels against their plain versions, on
    random inputs and on the inputs the encoder gives them for the bench
-   content (SNS PVQ, TNS coefficients, TNS analysis, LTPF analysis, bit
-   model: equal, every output; the LTPF analysis also on
+   content (SNS PVQ, TNS coefficients, TNS analysis, LTPF analysis, gain
+   estimate, bit model: equal, every output; the gain estimate also on
+   gain_cases: S = 2047 and 1 at 48 kHz / 10 ms, 8 kHz / 7.5 ms and
+   16 kHz / 10 ms, rows below every threshold, full-scale rows with no bit
+   budget, all-zero frames; the LTPF analysis also on
    ltpf_analysis_cases: random states at 48 kHz / 10 ms with S = 2047 and
    1, 16 kHz / 10 ms / 40 B and 44.1 kHz / 7.5 ms, mixed content from a
    fresh state at 8 kHz / 7.5 ms; the TNS coefficients, lag sums to bits, also on
@@ -75,7 +78,8 @@ torch.profiler sees in a replay of every graph:
    S = 1, same bound against the stored oracle PCM;
 7. encode: BatchEncoder(cuda).encode over the T frames of the bench
    content; every stream's bytes equal the oracle's; launch counts SNS =
-   TNS coefficients = analysis = LTPF analysis = T, bit model = 2T;
+   TNS coefficients = analysis = LTPF analysis = gain estimate = T, bit
+   model = 2T;
 7b. encode-fused: BatchEncoder(cuda, device_pack=True).encode_tensor over
    the same T frames, PCM to bytes on the card; every stream's bytes equal
    the oracle's; launch counts pack = T, bit model = 2T (T with emit_pack),
@@ -131,7 +135,11 @@ torch.profiler sees in a replay of every graph:
    settings, S = 2048 (48 kHz / 10 ms / 120 B on the bench content, 16 kHz
    / 10 ms / 40 B on mixed content): event and device times against its
    plain version and its bound, and the device time of one stream alone
-   (its chain's time on the card).
+   (its chain's time on the card). The gain estimate likewise at the three
+   benchmark cells' settings (48 kHz / 10 ms / 120 B on the bench content,
+   16 kHz / 10 ms / 40 B and 48 kHz / 7.5 ms / 75 B on mixed content):
+   event and device times against its plain version, its byte bound and
+   one stream alone on the device (its chain's time on the card).
    The encode DSP step (a replayed graph; CUDA events, host wall, thread
    CPU time), the
    whole encode with the host pack (host wall, thread CPU time) and the
@@ -779,6 +787,55 @@ def ltpf_analysis_cases(dev) -> dict:
     return cases
 
 
+def gain_rows(cfg, nbytes: int, S: int, seed: int, dev) -> tuple:
+    """gain_estimate arguments: the 4-line energies of random spectra at
+    levels from 0.1 to 1e5 (the encoder's formula), with every seventh row an
+    all-zero frame, every seventh a row below every threshold and every
+    seventh a full-scale row with no bit budget (gain index 255); bit
+    budgets up to the frame's bits."""
+    import torch
+
+    from lc3jax_torch import fp
+    from lc3jax_torch.convert import encoder_tables
+    from lc3jax_torch.dsp.encoder import EPS
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((S, cfg.ne)) * 10.0 ** rng.uniform(-1, 5, (S, 1))
+    kind = np.arange(S) % 7
+    x[kind == 0] = 0.0
+    x[kind == 2] = 2.0 ** 22
+    sq = torch.as_tensor(x, dtype=torch.float32).reshape(S, cfg.ne // 4, 4) ** 2
+    e = 10.0 * fp.log10f(EPS + (((sq[..., 0] + sq[..., 1]) + sq[..., 2]) + sq[..., 3]))
+    e[torch.as_tensor(kind == 1)] = -400.0
+    adj = np.where(kind == 2, 0, rng.integers(0, nbytes * 8 + 1, S))
+    tab = encoder_tables(cfg, nbytes * 8, dev)
+    return (e.to(dev), torch.as_tensor(adj, dtype=torch.int64, device=dev), tab.gg_off,
+            tab.divisors["gain_estimate"])
+
+
+def gain_cases(dev) -> dict:
+    """{label: gain_estimate arguments}: gain_rows at 48 kHz / 10 ms with
+    S = 2047 and 1, at 8 kHz / 7.5 ms (ne / 4 = 15) and 16 kHz / 10 ms."""
+    from lc3jax_torch.config import FrameDuration, Lc3Config
+
+    return {label: gain_rows(Lc3Config.new(fs, dur), nb, S, seed, dev)
+            for label, fs, dur, nb, S, seed in (
+                ("48k/10ms 150B S=2047", 48000, FrameDuration.MS10, 150, S_MAIN - 1, 41),
+                ("48k/10ms 150B S=1", 48000, FrameDuration.MS10, 150, 1, 42),
+                ("8k/7.5ms 20B", 8000, FrameDuration.MS7P5, 20, S_MAIN, 43),
+                ("16k/10ms 40B", 16000, FrameDuration.MS10, 40, S_MAIN, 44))}
+
+
+def gain_bound(args) -> tuple[float, str]:
+    """The gain estimate's bound on these arguments: it reads the energies,
+    the bit budgets and the divisor and writes the index; a stream scales
+    each energy twice (2 divisions, 3 multiplies) and runs 8 folds of 6 adds
+    a term."""
+    e, adj, _, d = args
+    S, n4 = e.shape
+    return bound(nbytes_of(e, adj, d) + nbytes_of(adj), float(S * n4 * (5 + 8 * 6)))
+
+
 def capture_kernel_inputs(cfg, pcm, nbytes: int = NBYTES):
     """Run one eager encode step from a fresh state and keep the arguments
     each encoder kernel gets (the serving steps run captured graphs, whose
@@ -789,7 +846,7 @@ def capture_kernel_inputs(cfg, pcm, nbytes: int = NBYTES):
     seen = {}
     spies = [(sns_kernel, "sns_pvq"), (tns_enc_kernel, "tns_coefficients"),
              (tns_enc_kernel, "tns_analysis"), (encoder, "ltpf_analysis"),
-             (bitmodel_kernel, "bitmodel_table_part")]
+             (encoder, "gain_estimate"), (bitmodel_kernel, "bitmodel_table_part")]
     originals = [getattr(m, n) for m, n in spies]
     for (m, n), orig in zip(spies, originals):
         def spy(*a, _n=n, _orig=orig, **kw):
@@ -879,6 +936,8 @@ KERNELS = {
     "pack": ("lc3t_pack", "pack_kernel", "pack.cu", "lc3jax/coding/pallas_pack.py:574"),
     "ltpf_analysis": ("lc3t_ltpf_analysis", "ltpf_analysis_kernel", "ltpf_analysis.cu",
                       "no pallas_call: XLA glue in lc3jax (lc3jax/dsp/encoder_ltpf.py)"),
+    "gain_estimate": ("lc3t_gain_estimate", "gain_estimate_kernel", "gain_estimate.cu",
+                      "no pallas_call: XLA glue in lc3jax (lc3jax/dsp/encoder.py)"),
 }
 EMIT_PACK = "lc3t_bitmodel:emit_pack"  # the bit model's launches with emit_pack
 
@@ -1099,7 +1158,7 @@ def serving_phase(card: str, cfg, bench, corpus, cp, pcm5: np.ndarray) -> dict:
         Path(f["frames.lc3"]).write_bytes(frames[:, :T].transpose(1, 0, 2).tobytes())
         Path(f["mono.lc3"]).write_bytes(frames[2, :T].tobytes())
         enc_counts = {"sns_pvq": T, "tns_coefficients": T, "tns_analysis": T,
-                      "ltpf_analysis": T, "bitmodel_table_part": 2 * T}
+                      "ltpf_analysis": T, "gain_estimate": T, "bitmodel_table_part": 2 * T}
         text = io.StringIO()
         with contextlib.redirect_stdout(text):
             rc, n_enc = counted("cli encode", enc_counts, lambda: cli.main(
@@ -1241,7 +1300,8 @@ def shard_worker(out: str) -> int:
     T = T_FRAMES
     (pcm, frames), counts = counted(f"rank {rank}", {
         "parse": T, "tns_synthesis": T, "ltpf": T, "sns_pvq": T, "tns_coefficients": T,
-        "tns_analysis": T, "ltpf_analysis": T, "bitmodel_table_part": 2 * T, "pack": T}, run)
+        "tns_analysis": T, "ltpf_analysis": T, "gain_estimate": T, "bitmodel_table_part": 2 * T,
+        "pack": T}, run)
     np.savez(out, pcm=pcm, frames=frames, counts=json.dumps(counts))
     torch.distributed.destroy_process_group()
     return 0
@@ -1356,7 +1416,8 @@ def sharding_phase(card: str, cfg, bench, pcm5: np.ndarray, fused5: np.ndarray,
         label = f"mesh x{n}"
         dec_n = {"tns_synthesis": n * T, "ltpf": n * T}
         enc_n = {"sns_pvq": n * T, "tns_coefficients": n * T, "tns_analysis": n * T,
-                 "ltpf_analysis": n * T, "bitmodel_table_part": 2 * n * T}
+                 "ltpf_analysis": n * T, "gain_estimate": n * T,
+                 "bitmodel_table_part": 2 * n * T}
 
         def fused_decode():
             step = parallel.make_sharded_decode_bytes_step(cfg, NBYTES, mesh)
@@ -1596,6 +1657,7 @@ def two_streams(card: str, cfg, bench, took) -> None:
 
         expect = n_dec if which == 0 else {"sns_pvq": 2 * T, "tns_coefficients": 2 * T,
                                            "tns_analysis": 2 * T, "ltpf_analysis": 2 * T,
+                                           "gain_estimate": 2 * T,
                                            "bitmodel_table_part": 4 * T}
         _, n = counted(f"two streams, {name}", expect, run)
         got = (inner.captures, inner.calls, inner.state_copies, len(inner.cache.states),
@@ -1789,7 +1851,7 @@ def compiled_phase(card: str, cfg, bench) -> None:
 
     # encode DSP and fused encode
     enc_n = {"sns_pvq": T, "tns_coefficients": T, "tns_analysis": T, "ltpf_analysis": T,
-             "bitmodel_table_part": 2 * T}
+             "gain_estimate": T, "bitmodel_table_part": 2 * T}
     encoders = {}
     for fused in (False, True):
         e = encoders[fused] = BatchEncoder(cfg, S, NBYTES, device="cuda", device_pack=fused)
@@ -1853,10 +1915,11 @@ def compiled_phase(card: str, cfg, bench) -> None:
                         {"parse": T, "tns_synthesis": T, "ltpf": T}),
         "encode DSP": (encoders[False].steps[("fields", NBYTES)], (pcm_in[0],),
                        {"sns_pvq": 1, "tns_coefficients": 1, "tns_analysis": 1,
-                        "ltpf_analysis": 1, "bitmodel_table_part": 2}),
+                        "ltpf_analysis": 1, "gain_estimate": 1, "bitmodel_table_part": 2}),
         "fused encode": (encoders[True].steps[("bytes", NBYTES)], (pcm_in[0],),
                          {"sns_pvq": 1, "tns_coefficients": 1, "tns_analysis": 1,
-                          "ltpf_analysis": 1, "bitmodel_table_part": 2, "pack": 1}),
+                          "ltpf_analysis": 1, "gain_estimate": 1, "bitmodel_table_part": 2,
+                          "pack": 1}),
     }
     # the steps made one a frame size, on the inputs their graphs last took
     graphs.update({
@@ -1865,6 +1928,7 @@ def compiled_phase(card: str, cfg, bench) -> None:
     graphs.update({
         f"make_encode_step {nb} B": (s, s.buffers(), {"sns_pvq": 1, "tns_coefficients": 1,
                                                       "tns_analysis": 1, "ltpf_analysis": 1,
+                                                      "gain_estimate": 1,
                                                       "bitmodel_table_part": 2})
         for nb, s in esteps.items()})
     graphs.update({
@@ -2032,7 +2096,8 @@ def api_phase(card: str, cfg, s50) -> None:
 
     (pcm0, pcm1), n = counted("api facade", {
         "parse": 2 * T, "tns_synthesis": 2 * T, "ltpf": 2 * T, "sns_pvq": T,
-        "tns_coefficients": T, "tns_analysis": T, "ltpf_analysis": T, "bitmodel_table_part": 2 * T}, run)
+        "tns_coefficients": T, "tns_analysis": T, "ltpf_analysis": T, "gain_estimate": T,
+        "bitmodel_table_part": 2 * T}, run)
     env0 = check_envelope("channel 0", pcm0, s50["pcm_out"])
     max1 = int(np.abs(pcm1.astype(np.int64) - lossy["lossy_pcm_out"]).max())
     plc = (dec.channels[0].metrics.plc_frames, dec.channels[1].metrics.plc_frames)
@@ -2095,8 +2160,9 @@ def main() -> int:
     from lc3jax_torch.convert import decoder_tables, encoder_fields_to_numpy, encoder_tables
     from lc3jax_torch.dsp import bitmodel_kernel, ltpf_kernel, sns_kernel, tns_enc_kernel, tns_kernel
     from lc3jax_torch.dsp import decoder as D
-    from lc3jax_torch.dsp import encoder_ltpf, ltpf_enc_kernel
-    from lc3jax_torch.dsp.encoder import encode_step, encoder_init, tuple_symbols
+    from lc3jax_torch.dsp import encoder_ltpf, gain_kernel, ltpf_enc_kernel
+    from lc3jax_torch.dsp.encoder import (encode_step, encoder_init, gain_bisection_plain,
+                                          tuple_symbols)
     from lc3jax_torch.dsp.ltpf import ltpf_pass_args
     from lc3jax_torch.serving import BatchDecoder, BatchEncoder
 
@@ -2215,6 +2281,7 @@ def main() -> int:
         "ltpf_analysis": (cfg, encoder_tables(cfg, 320, dev), ltpf_random_state(cfg, S_MAIN, 27, dev),
                           torch.as_tensor(noise_pcm(cfg, S_MAIN, 1, 28)[0], device=dev),
                           torch.as_tensor(g.integers(0, 4, S_MAIN) == 0, device=dev), 320),
+        "gain_estimate": gain_rows(cfg, NBYTES, S_MAIN, 29, dev),
     }
     enc_fns = {
         "sns_pvq": (sns_kernel.sns_pvq, sns_kernel.sns_pvq_plain),
@@ -2224,12 +2291,13 @@ def main() -> int:
                                 bitmodel_kernel.bitmodel_table_part_plain),
         "ltpf_analysis": (ltpf_tuple(ltpf_enc_kernel.ltpf_analysis),
                           ltpf_tuple(encoder_ltpf.ltpf_analysis_plain)),
+        "gain_estimate": (gain_kernel.gain_estimate, gain_bisection_plain),
     }
     lines = []
     more = {"tns_coefficients": tns_coef_cases(dev),
             "tns_analysis": {k: v[1] for k, v in tns_more.items()},
             "sns_pvq": pvq_cases(dev), "bitmodel_table_part": bitmodel_cases(dev),
-            "ltpf_analysis": ltpf_analysis_cases(dev)}
+            "ltpf_analysis": ltpf_analysis_cases(dev), "gain_estimate": gain_cases(dev)}
     shapes = set(sns_kernel.sns_pvq_plain(*more["sns_pvq"][f"ties S={S_MAIN - 1}"])[3].tolist())
     if shapes != {0, 1, 2, 3}:
         raise AssertionError(f"pvq_cases reach shapes {sorted(shapes)}, not all four")
@@ -2354,7 +2422,7 @@ def main() -> int:
     # ---- 7. the encode slice: BatchEncoder over T frames, S = 2048
     enc = BatchEncoder(cfg, S_MAIN, NBYTES, device="cuda")
     enc_kernels = ("sns_pvq", "tns_coefficients", "tns_analysis", "ltpf_analysis",
-                   "bitmodel_table_part")
+                   "gain_estimate", "bitmodel_table_part")
     _build.launches.clear()
     out = [enc.encode(pcm_in[tile, f]) for f in range(T_FRAMES)]
     launches.update({k: launch_counts()[k] for k in enc_kernels})
@@ -2482,6 +2550,17 @@ def main() -> int:
         equal_outputs(f"ltpf_analysis ({label})", lt_kern(*a), lt_plain(*a))
         lt_cells[label] = dict(args=a, ms=cuda_ms(lambda: lt_kern(*a)),
                                plain_ms=cuda_ms(lambda: lt_plain(*a)))
+    # the gain estimate at the three encode cells' settings
+    cfg48_1 = Lc3Config.new(48000, FrameDuration.MS7P5)
+    gain_kern, gain_plain = enc_fns["gain_estimate"]
+    gain_cells = {}
+    for label, c, nb, x in (("48k/10ms/120B", cfg, 120, pcm_in[tile, 0]),
+                            ("16k/10ms/40B", cfg16, 40, mixed_pcm(cfg16, S_MAIN, 1, 37)[0]),
+                            ("48k/7.5ms/75B", cfg48_1, 75, mixed_pcm(cfg48_1, S_MAIN, 1, 38)[0])):
+        a = capture_kernel_inputs(c, torch.as_tensor(x, device=dev), nb)["gain_estimate"]
+        equal_outputs(f"gain_estimate ({label})", gain_kern(*a), gain_plain(*a))
+        gain_cells[label] = dict(args=a, ms=cuda_ms(lambda: gain_kern(*a)),
+                                 plain_ms=cuda_ms(lambda: gain_plain(*a)))
     host_ms = []
     for _ in range(REPS):
         t0 = time.perf_counter()
@@ -2565,6 +2644,7 @@ def main() -> int:
     emit_bound = bound(bm_bytes + (bitmodel_kernel.TABLE_WORDS - bitmodel_kernel.ESC_OP) * 4
                        + 5 * cb.numel() * 4, 0.0)
     bounds["ltpf_analysis"] = ltpf_analysis_bound(real["ltpf_analysis"])
+    bounds["gain_estimate"] = gain_bound(real["gain_estimate"])
     # the pack kernel reads each stream's coded lines of x_q, the residual bit
     # of each line it may write, its 34 side fields and the operands of the
     # symbols it codes (each coded tuple's escapes and final), and writes
@@ -2612,6 +2692,13 @@ def main() -> int:
         cell.update(device_ms=device_ms(lambda: lt_kern(*a), "ltpf_analysis_kernel"),
                     one_stream_device_ms=device_ms(lambda: lt_kern(*one), "ltpf_analysis_kernel"))
         cell["bound_ms"], cell["bound_by"] = ltpf_analysis_bound(a)
+    # the gain estimate: one stream alone is its chain's time on the card
+    for label, cell in gain_cells.items():
+        a = cell.pop("args")
+        one = (a[0][:1], a[1][:1], *a[2:])
+        cell.update(device_ms=device_ms(lambda: gain_kern(*a), "gain_estimate_kernel"),
+                    one_stream_device_ms=device_ms(lambda: gain_kern(*one), "gain_estimate_kernel"))
+        cell["bound_ms"], cell["bound_by"] = gain_bound(a)
 
     rt = lambda ms: S_MAIN * (cfg.nf / cfg.fs) / (ms / 1e3)
     log("encode-times", f"{card}, S={S_MAIN}, {REPS} reps alternated, median [min-max] ms: "
@@ -2652,6 +2739,10 @@ def main() -> int:
         f"{c['one_stream_device_ms']:.4f}) vs plain {c['plain_ms']:.4f} ms, bound "
         f"{c['bound_ms']:.5f} ms ({c['bound_by']})" for label, c in lt_cells.items())
         + f"; 48k/10ms/150B one stream alone {lt_alone:.4f} ms on the device")
+    log("gain-estimate", f"{card}, S={S_MAIN}: " + "; ".join(
+        f"{label}: kernel {c['ms']:.4f} ms (device {c['device_ms']:.4f}, one stream alone "
+        f"{c['one_stream_device_ms']:.4f}) vs plain {c['plain_ms']:.4f} ms, bound "
+        f"{c['bound_ms']:.5f} ms ({c['bound_by']})" for label, c in gain_cells.items()))
     log("host-pack", f"{card}: the C++ host packer (native/lc3_bitstream.cc, {host_pack.N_THREADS} "
                      f"threads) on the pack kernel's bench fields, S={S_MAIN}, 150 B: "
                      f"{spread(host_ms)} ms wall, median [min-max] of {REPS}")
@@ -2689,6 +2780,7 @@ def main() -> int:
         chain_cycles_alone=coef_alone, sm_clock_mhz=clock)
     kernels[list(KERNELS).index("ltpf_analysis")].update(
         one_stream_device_ms=lt_alone, cells=lt_cells)
+    kernels[list(KERNELS).index("gain_estimate")].update(cells=gain_cells)
     kernels[list(KERNELS).index("tns_synthesis")].update(
         chain_floor_ms=chain_floor, chain_cycles_a_line=min(chain_cyc), chain_lines=chain_lines,
         sm_clock_mhz=clock)

@@ -11,8 +11,8 @@ in minutes):
          -o build/lc3jax_torch/liblc3jax_torch_<hash>.so *.o
 
 `--fmad=false` keeps every float multiply and add separately rounded, so the
-TNS, LTPF (both filter passes and the encoder's pitch analysis) and SNS
-kernels equal their plain PyTorch versions bit for bit
+TNS, LTPF (both filter passes and the encoder's pitch analysis), SNS and
+gain estimate kernels equal their plain PyTorch versions bit for bit
 (eager PyTorch rounds once per op and never contracts to fma).
 
 The library is built at first use into `build/lc3jax_torch/` at the repo
@@ -58,6 +58,7 @@ SIGNATURES = {
     "lc3t_bitmodel": [_PTR] * 7 + [_INT] * 3 + [_PTR],
     "lc3t_pack": [_PTR] * 6 + [_INT] * 5 + [_PTR],
     "lc3t_ltpf_analysis": [_PTR] * 31 + [_INT] * 9 + [_FLT] + [_PTR],
+    "lc3t_gain_estimate": [_PTR] * 4 + [_INT] * 3 + [_FLT] * 4 + [_PTR],
 }
 
 _lib = None

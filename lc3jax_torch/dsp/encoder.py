@@ -9,13 +9,13 @@ bit model, the residual bits and the noise level. The output is the JAX
 step's dict of integer fields, which coding/host_pack.py packs into bytes
 on the host, or, with emit_pack, coding/pack_kernel.py on the device.
 
-Five stages launch hand-written CUDA kernels on the card, each with a plain
+Six stages launch hand-written CUDA kernels on the card, each with a plain
 PyTorch version that a CPU tensor takes: the SNS PVQ search
 (sns_kernel.py), the TNS coefficients and analysis lattice
 (tns_enc_kernel.py), the whole LTPF pitch analysis (ltpf_enc_kernel.py),
-and the bit model's table lookups, twice a step
-(bitmodel_kernel.py; the second pass also emits the range coder's operands
-when emit_pack is on).
+the spectral quantizer's gain bisection (gain_kernel.py), and the bit
+model's table lookups, twice a step (bitmodel_kernel.py; the second pass
+also emits the range coder's operands when emit_pack is on).
 
 Exactness. The encoder must give the oracle's bytes (lc3jax/ref), which
 sits on f32 knife edges (quantizer rounding, PVQ and codebook argmins). So:
@@ -48,6 +48,7 @@ from ..devices import resolve_device
 from . import bitmodel_kernel, libmexact, sns_kernel, tns_enc_kernel
 from .encoder_ltpf import LtpfEncState, ltpf_enc_init
 from .fftexact import batched_dct_iv
+from .gain_kernel import C7, C27, C36, C43, gain_estimate
 from .ltpf_enc_kernel import ltpf_analysis
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -514,6 +515,41 @@ def tns_analysis_batch(tab, x, bw_ind, nbits: int, near_nyquist):
 # ------------------------------------------------------- spectral quantizer
 
 
+def gain_bisection_plain(e, nbits_spec_adj, gg_off: int, divisor):
+    """The gain bisection (ref/quant.py:112-143) from the 4-line energies e
+    (f32 [S, ne/4], dB): the gain index, int64 [S], before the gain
+    limitation. The plain version of gain_kernel.gain_estimate (its CPU path).
+
+    Its 8 steps test 8 of the 256 gain indices; the oracle's f32 fold over
+    the reversed energies is run once for all 256 thresholds ([S, 256] wide)
+    and the bisection reads it."""
+    S, n4 = e.shape
+    dev = e.device
+    k28, k20 = 28.0, divisor
+    thr = (torch.arange(256, device=dev) + gg_off).to(torch.float32)[None, :]  # exact
+    scaled = e * k28 / k20
+    sc2 = ((2.0 * e) * k28) / k20
+    tmp = torch.zeros(S, 256, dtype=torch.float32, device=dev)
+    seen = torch.zeros(S, 256, dtype=torch.bool, device=dev)
+    for i in range(n4 - 1, -1, -1):
+        sc = scaled[:, i : i + 1]
+        above = sc >= thr
+        far = thr < (sc - C43)
+        a_term = torch.where(far, (sc2[:, i : i + 1] - 2.0 * thr) - C36, (sc - thr) + C7)
+        term = torch.where(above, a_term, torch.where(seen, C27, 0.0))
+        tmp = tmp + term
+        seen = seen | above
+    limit = ((nbits_spec_adj.float() * 1.4) * k28) / k20
+    over = (tmp > limit[:, None]) & seen  # seen at the end: some energy above
+    fac = 256
+    gg_ind = torch.full((S,), 255, dtype=torch.int64, device=dev)
+    for _ in range(8):
+        fac >>= 1
+        gg_ind = gg_ind - fac
+        gg_ind = torch.where(over.gather(1, gg_ind[:, None])[:, 0], gg_ind + fac, gg_ind)
+    return gg_ind
+
+
 def spectral_quantize(tab, state: EncoderState, x_f, nbits: int, nbits_bw: int,
                       nbits_tns, nbits_ltpf, emit_pack: bool = False):
     """Gain search, quantization and bit model (ref/quant.py). emit_pack adds
@@ -542,35 +578,8 @@ def spectral_quantize(tab, state: EncoderState, x_f, nbits: int, nbits_bw: int,
     total4 = ((sq[:, :, 0] + sq[:, :, 1]) + sq[:, :, 2]) + sq[:, :, 3]
     e = 10.0 * fp.log10f(EPS + total4)  # [S, ne/4]
 
-    # gain bisection (ref/quant.py:112-143). Its 8 steps test 8 of the 256
-    # gain indices; the oracle's f32 fold over the reversed energies is run
-    # once for all 256 thresholds ([S, 256] wide) and the bisection reads it
-    k28, k20 = 28.0, tab.divisors["gain_estimate"]
-    c27 = float(F32(2.7) * F32(28.0) / F32(20.0))
-    c43 = float(F32(43.0) * F32(28.0) / F32(20.0))
-    c36 = float(F32(36.0) * F32(28.0) / F32(20.0))
-    c7 = float(F32(7.0) * F32(28.0) / F32(20.0))
-    thr = (torch.arange(256, device=dev) + gg_off).to(torch.float32)[None, :]  # exact
-    scaled = e * k28 / k20
-    sc2 = ((2.0 * e) * k28) / k20
-    tmp = torch.zeros(S, 256, dtype=torch.float32, device=dev)
-    seen = torch.zeros(S, 256, dtype=torch.bool, device=dev)
-    for i in range(ne // 4 - 1, -1, -1):
-        sc = scaled[:, i : i + 1]
-        above = sc >= thr
-        far = thr < (sc - c43)
-        a_term = torch.where(far, (sc2[:, i : i + 1] - 2.0 * thr) - c36, (sc - thr) + c7)
-        term = torch.where(above, a_term, torch.where(seen, c27, 0.0))
-        tmp = tmp + term
-        seen = seen | above
-    limit = ((nbits_spec_adj.float() * 1.4) * k28) / k20
-    over = (tmp > limit[:, None]) & seen  # seen at the end: some energy above
-    fac = 256
-    gg_ind = torch.full((S,), 255, dtype=torch.int64, device=dev)
-    for _ in range(8):
-        fac >>= 1
-        gg_ind = gg_ind - fac
-        gg_ind = torch.where(over.gather(1, gg_ind[:, None])[:, 0], gg_ind + fac, gg_ind)
+    # gain bisection (ref/quant.py:112-143): a kernel on the card
+    gg_ind = gain_estimate(e, nbits_spec_adj, gg_off, tab.divisors["gain_estimate"])
 
     # gain limitation
     x_max = x_f.abs().amax(1)
