@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .coding import host_pack
-from .coding.device import decode_bytes_step, decode_bytes_step_stats, encode_bytes_step
+from .coding.device import decode_bytes_step_stats, encode_bytes_step
 from .coding.host_parse import HostParser
 from .compiled import StepCache
 from .config import Lc3Config
@@ -89,12 +89,10 @@ class BatchDecoder:
 
     def _step(self, kind: str, nbytes: int, T: int = 0):
         """The compiled step of one kind for nbytes (and T frames): "stats"
-        the fused decode with the concealed-frame count, "fused" without it,
-        "parsed" decode_step on host-parsed fields, "chunk" the T-frame
-        fused loop."""
+        the fused decode with the concealed-frame count, "parsed"
+        decode_step on host-parsed fields, "chunk" the T-frame fused loop."""
         cfg = self.cfg
         fn = {"stats": lambda st, x: decode_bytes_step_stats(cfg, nbytes, st, x),
-              "fused": lambda st, x: decode_bytes_step(cfg, nbytes, st, x),
               "parsed": lambda st, fr: decode_step(cfg, nbytes * 8, st, fr),
               "chunk": lambda st, x: decode_bytes_frames(cfg, nbytes, st, x)}[kind]
         return self._steps.step((kind, nbytes, T), fn)
@@ -154,12 +152,13 @@ class BatchDecoder:
         return pcm.cpu().numpy() if fetch else pcm
 
     def _decode_untracked(self, payloads: np.ndarray, fetch: bool = False):
-        """The fused step without the concealed-frame count, so without a
-        sync unless the PCM is fetched."""
+        """The fused step with its concealed-frame count left unread (the
+        count is a device tensor, read only on demand), so without a sync
+        unless the PCM is fetched."""
         self._check(payloads)
         x = self._to_device(payloads)
-        step = self._step("fused", x.shape[1])
-        _, pcm = (step.run if fetch else step)(self.state, x)
+        step = self._step("stats", x.shape[1])
+        _, pcm, _ = (step.run if fetch else step)(self.state, x)
         self.metrics.host_syncs += fetch
         self.metrics.record_decode(self.n_streams, self._frame_seconds)
         return pcm.cpu().numpy() if fetch else pcm

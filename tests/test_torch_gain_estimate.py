@@ -185,21 +185,34 @@ def test_wrapper_refuses_bad_arguments(case):
 # -------------------------------------------------------------- on the card
 
 
+# every configuration at both byte counts and S = 1, 37 (a partial block)
+# and 2048; and S = 2047 at 48 kHz / 10 ms / 150 B, 40 B at 16 kHz / 10 ms
+KERNEL_CASES = ([(c, NBYTES, (1, 37, 2048)) for c in ALL_CONFIGS]
+                + [(ALL_CONFIGS[5], (150,), (2047,)), (ALL_CONFIGS[1], (40,), (2048,))])
+KERNEL_IDS = CFG_IDS + ["48000-10ms-150B-S2047", "16000-10ms-40B-S2048"]
+
+
 @pytest.mark.card
-@pytest.mark.parametrize("cfg", ALL_CONFIGS, ids=CFG_IDS)
-def test_kernel_equals_plain_on_the_card(cfg):
-    """At S = 1, 37 (a partial block) and 2048, both byte counts: the edge
-    rows and random spectra, equal index for index; one launch a call."""
+@pytest.mark.parametrize("cfg,nbytes_list,sizes", KERNEL_CASES, ids=KERNEL_IDS)
+def test_kernel_equals_plain_on_the_card(cfg, nbytes_list, sizes):
+    """The edge rows, then random spectra at levels from 0.1 to 1e5 with
+    every seventh row an all-zero frame, every seventh a row below every
+    threshold and every seventh a full-scale row with no bit budget: equal
+    index for index; one launch a call."""
     dev = _card()
-    for nbytes in NBYTES:
+    for nbytes in nbytes_list:
         tab = encoder_tables(cfg, nbytes * 8, dev)
         d = tab.divisors["gain_estimate"]
         rows, adj_rows = edge_rows(cfg, nbytes, seed=cfg.fs * nbytes)
         rng = np.random.default_rng(nbytes)
-        for S in (1, 37, 2048):
+        for S in sizes:
             x_f = rng.standard_normal((S, cfg.ne)) * 10.0 ** rng.uniform(-1, 5, (S, 1))
+            kind = np.arange(S) % 7
+            x_f[kind == 0] = 0.0
+            x_f[kind == 2] = 2.0 ** 22
             e = _energies(torch.as_tensor(x_f, dtype=torch.float32))
-            adj = torch.as_tensor(rng.integers(0, nbytes * 8 + 1, S))
+            e[torch.as_tensor(kind == 1)] = LOW_DB
+            adj = torch.as_tensor(np.where(kind == 2, 0, rng.integers(0, nbytes * 8 + 1, S)))
             k = min(S, rows.shape[0])
             e[:k], adj[:k] = rows[:k], adj_rows[:k]
             e, adj = e.to(dev), adj.to(dev)
@@ -215,7 +228,7 @@ def test_kernel_equals_plain_on_the_card(cfg):
 # every configuration at S = 37 and 40 B, and the benchmark cells' settings
 STEP_CASES = ([(c, 37, 40) for c in ALL_CONFIGS]
               + [(ALL_CONFIGS[5], 2048, 120), (ALL_CONFIGS[1], 2048, 40),
-                 (ALL_CONFIGS[4], 2048, 75)])
+                 (ALL_CONFIGS[11], 2048, 75)])
 STEP_IDS = ([f"{i}-S37" for i in CFG_IDS]
             + ["48000-10ms-S2048", "16000-10ms-S2048", "48000-7.5ms-S2048"])
 T_FRAMES = 6

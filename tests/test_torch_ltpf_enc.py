@@ -97,6 +97,23 @@ def corpus_pcm(cfg, S: int, T: int, seed: int) -> np.ndarray:
     return rows.reshape(S, T, cfg.nf).transpose(1, 0, 2).copy()
 
 
+def random_state(cfg, S: int, seed: int, device) -> LtpfEncState:
+    """An LtpfEncState of random histories (8,000 rms), lags, pitches and
+    memories: every branch of the hysteresis in one frame."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a, device=device)
+    f32 = lambda a: t(np.asarray(a, np.float32))
+    zero = ltpf_enc_init(cfg, S, device)
+    rows = {k: f32(rng.standard_normal(getattr(zero, k).shape) * 8000)
+            for k in ("x_ext", "x12", "x64")}
+    return LtpfEncState(**rows, h50_m1=f32(rng.standard_normal(S) * 100),
+                        h50_m2=f32(rng.standard_normal(S) * 100),
+                        t_prev=t(rng.integers(17, 115, S).astype(np.int32)),
+                        mem_pitch=f32(rng.uniform(32, 228, S)), mem_active=t(rng.random(S) < 0.5),
+                        mem_nc=f32(rng.uniform(0.8, 1.0, S)),
+                        mem_mem_nc=f32(rng.uniform(0.8, 1.0, S)))
+
+
 def _outputs(fields, st):
     return {**{f"field {k}": v for k, v in fields.items()},
             **{f"state {f.name}": getattr(st, f.name) for f in dataclasses.fields(LtpfEncState)}}
@@ -201,29 +218,45 @@ def test_wrapper_refuses_bad_arguments(case):
 # -------------------------------------------------------------- on the card
 
 
+# every configuration from a fresh state at S = 1, 37 and 2048 and bit rates
+# on both sides of the gain limit; and from a random state: S = 2047 and 1
+# at 48 kHz / 10 ms, 40 B (the gain on) and 150 B, S = 2048 at 16 kHz / 10
+# ms / 40 B and at 44.1 kHz / 7.5 ms / 60 B
+KERNEL_CASES = ([(c, (1, 37, 2048), None) for c in ALL_CONFIGS]
+                + [(ALL_CONFIGS[5], (2047, 1), (40, 150)), (ALL_CONFIGS[1], (2048,), (40,)),
+                   (ALL_CONFIGS[10], (2048,), (60,))])
+KERNEL_IDS = CFG_IDS + ["48000-10ms-40B-150B-random-state", "16000-10ms-40B-random-state",
+                        "44100-7.5ms-60B-random-state"]
+
+
 @pytest.mark.card
-@pytest.mark.parametrize("cfg", ALL_CONFIGS, ids=CFG_IDS)
-def test_kernel_equals_plain_on_the_card(cfg):
+@pytest.mark.parametrize("cfg,sizes,nbytes", KERNEL_CASES, ids=KERNEL_IDS)
+def test_kernel_equals_plain_on_the_card(cfg, sizes, nbytes):
     """Over T_FRAMES consecutive frames (t_prev and the hysteresis carried),
-    on corpus and stress PCM, near_nyquist on and off, at bit rates on both
-    sides of the gain limit and S = 1, 37 and 2048: every field and state
-    tensor equal; the stress inputs reach every pitch case."""
+    on corpus and stress PCM, near_nyquist on and off, from a fresh state at
+    bit rates on both sides of the gain limit (nbytes None) or from a random
+    state (random_state) at each of nbytes: every field and state tensor
+    equal; from a fresh state, the stress inputs reach every pitch case."""
     dev = _card()
-    limit = 560 + cfg.fs_ind * 80
-    if cfg.n_ms == FrameDuration.MS7P5:
-        limit = limit * 3 // 4
-    rates = sorted({nb for nb in (160, limit - 8, limit + 8, 1200) if 20 * 8 <= nb <= 400 * 8})
-    assert any(ltpf_gain_on(cfg, nb) for nb in rates) and not all(ltpf_gain_on(cfg, nb)
-                                                                 for nb in rates)
+    if nbytes is None:
+        limit = 560 + cfg.fs_ind * 80
+        if cfg.n_ms == FrameDuration.MS7P5:
+            limit = limit * 3 // 4
+        rates = sorted({nb for nb in (160, limit - 8, limit + 8, 1200) if 20 * 8 <= nb <= 400 * 8})
+        assert any(ltpf_gain_on(cfg, nb) for nb in rates) and not all(ltpf_gain_on(cfg, nb)
+                                                                     for nb in rates)
+    else:
+        rates = [nb * 8 for nb in nbytes]
     cases = 0
     pitch_ints, active = set(), 0
-    for S in (1, 37, 2048):
+    for S in sizes:
         for kind, make in (("corpus", corpus_pcm), ("stress", stress_pcm)):
             pcm = torch.as_tensor(make(cfg, S, T_FRAMES, seed=S + cfg.fs), device=dev)
             nns = torch.as_tensor(np.random.default_rng(S).random((T_FRAMES, S)) < 0.3, device=dev)
             for nbits in rates:
                 tab = encoder_tables(cfg, nbits, dev)
-                st_k = st_p = ltpf_enc_init(cfg, S, dev)
+                st_k = st_p = (ltpf_enc_init(cfg, S, dev) if nbytes is None
+                               else random_state(cfg, S, S + nbits, dev))
                 before = _build.launches["lc3t_ltpf_analysis"]
                 for f in range(T_FRAMES):
                     got, st_k = K.ltpf_analysis(cfg, tab, st_k, pcm[f], nns[f], nbits)
@@ -235,7 +268,9 @@ def test_kernel_equals_plain_on_the_card(cfg):
                         active += int(want["ltpf_active"].sum())
                 assert _build.launches["lc3t_ltpf_analysis"] == before + T_FRAMES
                 cases += 1
-    assert cases == 3 * 2 * len(rates)
+    assert cases == len(sizes) * 2 * len(rates)
+    if nbytes is not None:
+        return  # rates where the gain may be off: LTPF never active
     assert active > 0, "no stream activated LTPF"
     # each of the fractional search's cases: pitch_int 32, below 127, below 157, above
     reached = [32 in pitch_ints, any(32 < p < 127 for p in pitch_ints),

@@ -6,9 +6,12 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from lc3jax_torch import serving
+from lc3jax_torch.coding.device import decode_bytes_step
 from lc3jax_torch.config import FrameDuration, Lc3Config
+from lc3jax_torch.dsp.decoder import decoder_init
 from lc3jax_torch.serving import BatchDecoder
 
 CFG48 = Lc3Config.new(48000, FrameDuration.MS10)
@@ -139,6 +142,24 @@ def test_device_parse_decode_stream_chunked(stream, monkeypatch):
     assert len(outs) == NFRAMES
     assert all(np.array_equal(a, b) for a, b in zip(outs, want))
     assert dec.metrics.frames_decoded == S * NFRAMES
+
+
+def test_fused_decode_paths_share_one_step(stream):
+    """decode, decode_stream(fetch=False) and a chunked stream whose last
+    batch is decoded alone all run the one fused-decode step per nbytes,
+    each PCM equal to the eager decode_bytes_step over the same sequence;
+    only decode counts the concealed frames."""
+    b, _, _ = stream
+    dec = BatchDecoder(CFG48, S, NBYTES, device="cpu")
+    outs = [dec.decode(b[0]), dec.decode(b[2])]
+    outs += [o.numpy() for o in dec.decode_stream([b[1], b[2]], fetch=False)]
+    outs += dec.decode_stream([b[3], b[4], b[2]], chunk_frames=2)
+    assert set(dec.steps) == {("stats", NBYTES, 0), ("chunk", NBYTES, 2)}
+    st = decoder_init(CFG48, S, "cpu")
+    for f, (batch, out) in enumerate(zip([b[0], b[2], b[1], b[2], b[3], b[4], b[2]], outs)):
+        st, want = decode_bytes_step(CFG48, NBYTES, st, torch.as_tensor(batch))
+        assert np.array_equal(out, want.numpy()), f
+    assert dec.metrics.plc_frames == 1 and dec.metrics.frames_decoded == 7 * S
 
 
 def test_chunk_closes_on_nbytes_change(goldens, monkeypatch):

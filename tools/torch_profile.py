@@ -17,12 +17,11 @@ over the streams, after warm-up:
 - device launches per step, and the eight names that take the most device
   time;
 - for the encoder, each stage of the eager `encode_step` synchronised on
-  its own: host wall per step, and device busy per step (the card's
-  intervals inside the stage's range: what a replayed graph of the step
-  spends there, less the gaps between its nodes); and the host side after
-  the DSP step: the
-  copy of the fields to the host and the C++ packer, each a median of
-  `steps` calls.
+  its own: device busy per step (the card's intervals inside the stage's
+  range: what a replayed graph of the step spends there, less the gaps
+  between its nodes); and the host side after the DSP step: the copy of
+  the fields to the host and the C++ packer, each a median of `steps`
+  calls.
 
 The three serving steps run as replayed CUDA graphs (`compiled.py`), each
 line with its graph's nodes; the same lines follow for the eager step
@@ -100,38 +99,6 @@ def device_profile(fn, steps: int) -> dict:
 ENCODE_STAGES = ("forward_mdct", "bandwidth_detect", "attack_detect", "sns_analysis",
                  "tns_analysis_batch", "ltpf_analysis", "spectral_quantize",
                  "residual_bits_batch", "noise_level_batch")
-
-
-def encode_stages(fn, steps: int) -> dict:
-    """Host wall ms per step of each stage of encode_step, each stage
-    synchronised before and after (so a stage's time includes its device
-    work and the host's launch time; the sum exceeds an unsynchronised step)."""
-    import torch
-
-    from lc3jax_torch.dsp import encoder as E
-
-    spent = defaultdict(float)
-    originals = {name: getattr(E, name) for name in ENCODE_STAGES}
-
-    def timed(name, orig):
-        def run(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = orig(*a, **k)
-            torch.cuda.synchronize()
-            spent[name] += time.perf_counter() - t0
-            return out
-        return run
-
-    for name, orig in originals.items():
-        setattr(E, name, timed(name, orig))
-    try:
-        for _ in range(steps):
-            fn()
-    finally:
-        for name, orig in originals.items():
-            setattr(E, name, orig)
-    return {name: spent[name] / steps * 1e3 for name in ENCODE_STAGES}
 
 
 def encode_stage_device(fn, steps: int) -> dict:
@@ -262,10 +229,6 @@ def main() -> int:
               f"{prof['busy_ms']:.3f} ms ({100 * prof['busy_ms'] / wall:.1f}%), "
               f"{prof['launches']:.0f} device launches/step; top: " + "; ".join(
                   f"{n} {ms:.4f} ms" for n, ms in prof["top"]), flush=True)
-    stages = encode_stages(steps_of["encode_dsp_eager"], steps)
-    out["encode_stages_ms"] = stages
-    print(f"[encode-stages] {card}, S={S}, each synchronised: " + "; ".join(
-        f"{n} {ms:.3f} ms" for n, ms in stages.items()), flush=True)
     stage_dev = encode_stage_device(steps_of["encode_dsp_eager"], steps)
     out["encode_stages_device_ms"] = stage_dev
     print(f"[encode-stages-device] {card}, S={S}, device busy per step: " + "; ".join(
