@@ -16,7 +16,7 @@ for eager steps. Phase 11 holds those records against the kernels
 torch.profiler sees in a replay of every graph:
 
 1. card: nvidia-smi name and power limit, torch and CUDA versions;
-2. build: the ten kernels from lc3jax_torch/csrc, one nvcc per source, all
+2. build: the kernels from lc3jax_torch/csrc, one nvcc per source, all
    at once, then the host packer (native/lc3_bitstream.cc);
 3. kernels: each decode kernel against its plain PyTorch version on the
    card: parse on encoded frames mixed with random garbage (all 19 fields
@@ -134,7 +134,9 @@ torch.profiler sees in a replay of every graph:
    benchmark cells' settings (48 kHz / 10 ms / 120 B on the bench content,
    16 kHz / 10 ms / 40 B and 48 kHz / 7.5 ms / 75 B on mixed content):
    event and device times against its plain version, its byte bound and
-   one stream alone on the device (its chain's time on the card).
+   one stream alone on the device (its chain's time on the card). The SNS
+   analysis' two kernels (sns_front, sns_finish) likewise at the same three
+   settings, and their sum.
    The encode DSP step (a replayed graph; CUDA events, host wall, thread
    CPU time), the
    whole encode with the host pack (host wall, thread CPU time) and the
@@ -248,7 +250,7 @@ STEP_LAUNCHES = {
     "decode": {"parse": 1, "tns_synthesis": 1, "ltpf": 1},
     "parsed": {"tns_synthesis": 1, "ltpf": 1},
     "fields": {"sns_pvq": 1, "tns_coefficients": 1, "tns_analysis": 1, "ltpf_analysis": 1,
-               "gain_estimate": 1, "bitmodel_table_part": 2},
+               "gain_estimate": 1, "bitmodel_table_part": 2, "sns_front": 1, "sns_finish": 1},
 }
 STEP_LAUNCHES["bytes"] = dict(STEP_LAUNCHES["fields"], pack=1, emit_pack=1)
 
@@ -769,6 +771,45 @@ def gain_bound(args) -> tuple[float, str]:
     return bound(nbytes_of(e, adj, d) + nbytes_of(adj), float(S * n4 * (5 + 8 * 6)))
 
 
+# f32 operations a stream of the SNS analysis' kernels, counted from
+# encoder.sns_front_plain and sns_finish_plain (a log2 or an exp2f as one):
+# front: smoothing and pre-emphasis 6 a band, the total 1, floor, log2 and
+# halving 4, the grouping 12 a group, two means and their removal 3 a
+# group, the attack windows 6, the codebook rows 24 each of 64, the
+# residual 1 and the rotation 32 a scale factor; finish: the synthesis 34
+# a scale factor, the interpolation 3 a point, the enumerations 8 a
+# position, then 1 a line (the shaping)
+SNS_OPS = {"sns_front": 64 * 6 + 64 + 64 * 4 + 16 * 12 + 16 * 3 * 2 + 16 * 6 + 64 * 24
+           + 16 + 16 * 32,
+           "sns_finish": 16 * 34 + 64 * 3 + 2 * 16 * 8}
+
+
+def sns_finish_tuple(fn):
+    """fn (sns_finish or its plain version) returning one tuple: the shaped
+    spectrum, then the seven fields."""
+
+    def run(*args):
+        x_s, fields = fn(*args)
+        return (x_s, *fields.values())
+
+    return run
+
+
+def sns_bound(name: str, args, plain) -> tuple[float, str]:
+    """An SNS analysis kernel's bound on these arguments: the tensors it
+    reads (the spectrum's first ne lines a row) and writes, and SNS_OPS a
+    stream plus a multiply a line."""
+    import torch
+
+    reads = [t for t in args if torch.is_tensor(t)]
+    tab = args[0]
+    tables = ([tab.preemph, tab.group_idx, tab.group_w, tab.lfcb, tab.hfcb, tab.dct16]
+              if name == "sns_front" else [tab.dct16, tab.mpvq_offsets, tab.band_of_line])
+    S = reads[0].shape[0]
+    lines = tab.p.cfg.ne if name == "sns_finish" else 0
+    return bound(nbytes_of(*reads, *tables, *plain(*args)), float(S * (SNS_OPS[name] + lines)))
+
+
 def capture_kernel_inputs(cfg, pcm, nbytes: int = NBYTES):
     """Run one eager encode step from a fresh state and keep the arguments
     each encoder kernel gets (the serving steps run captured graphs, whose
@@ -779,7 +820,8 @@ def capture_kernel_inputs(cfg, pcm, nbytes: int = NBYTES):
     seen = {}
     spies = [(sns_kernel, "sns_pvq"), (tns_enc_kernel, "tns_coefficients"),
              (tns_enc_kernel, "tns_analysis"), (encoder, "ltpf_analysis"),
-             (encoder, "gain_estimate"), (bitmodel_kernel, "bitmodel_table_part")]
+             (encoder, "gain_estimate"), (bitmodel_kernel, "bitmodel_table_part"),
+             (encoder, "sns_front"), (encoder, "sns_finish")]
     originals = [getattr(m, n) for m, n in spies]
     for (m, n), orig in zip(spies, originals):
         def spy(*a, _n=n, _orig=orig, **kw):
@@ -871,6 +913,10 @@ KERNELS = {
                       "no pallas_call: XLA glue in lc3jax (lc3jax/dsp/encoder_ltpf.py)"),
     "gain_estimate": ("lc3t_gain_estimate", "gain_estimate_kernel", "gain_estimate.cu",
                       "no pallas_call: XLA glue in lc3jax (lc3jax/dsp/encoder.py)"),
+    "sns_front": ("lc3t_sns_front", "sns_front_kernel", "sns_analysis.cu",
+                  "no pallas_call: XLA glue in lc3jax (lc3jax/dsp/encoder.py:sns_analysis)"),
+    "sns_finish": ("lc3t_sns_finish", "sns_finish_kernel", "sns_analysis.cu",
+                   "no pallas_call: XLA glue in lc3jax (lc3jax/dsp/encoder.py:sns_analysis)"),
 }
 EMIT_PACK = "lc3t_bitmodel:emit_pack"  # the bit model's launches with emit_pack
 
@@ -2066,9 +2112,9 @@ def main() -> int:
     from lc3jax_torch.convert import decoder_tables, encoder_fields_to_numpy, encoder_tables
     from lc3jax_torch.dsp import bitmodel_kernel, ltpf_kernel, sns_kernel, tns_enc_kernel, tns_kernel
     from lc3jax_torch.dsp import decoder as D
-    from lc3jax_torch.dsp import encoder_ltpf, gain_kernel, ltpf_enc_kernel
+    from lc3jax_torch.dsp import encoder_ltpf, gain_kernel, ltpf_enc_kernel, sns_analysis_kernel
     from lc3jax_torch.dsp.encoder import (encode_step, encoder_init, gain_bisection_plain,
-                                          tuple_symbols)
+                                          sns_finish_plain, sns_front_plain, tuple_symbols)
     from lc3jax_torch.dsp.ltpf import ltpf_pass_args
     from lc3jax_torch.serving import BatchDecoder, BatchEncoder
 
@@ -2184,9 +2230,10 @@ def main() -> int:
         "tns_analysis": (rnd, etab.tns_bounds[bw_r], ro_r, nf_r, etab.tns_sin[rci_r]),
         "bitmodel_table_part": (ts["c"], ts["g"], ts["sym"], 512, cfg.ne, ts["lastnz"]),
     }
-    # the LTPF analysis and the gain estimate are held to their plain
-    # versions by the card tests (tests/test_torch_ltpf_enc.py,
-    # tests/test_torch_gain_estimate.py); phase 9 times them
+    # the LTPF analysis, the gain estimate and the SNS analysis are held to
+    # their plain versions by the card tests (tests/test_torch_ltpf_enc.py,
+    # tests/test_torch_gain_estimate.py,
+    # tests/test_torch_sns_analysis_kernel.py); phase 9 times them
     enc_fns = {
         "sns_pvq": (sns_kernel.sns_pvq, sns_kernel.sns_pvq_plain),
         "tns_coefficients": (tns_enc_kernel.tns_coefficients, tns_enc_kernel.tns_coefficients_plain),
@@ -2196,6 +2243,9 @@ def main() -> int:
         "ltpf_analysis": (ltpf_tuple(ltpf_enc_kernel.ltpf_analysis),
                           ltpf_tuple(encoder_ltpf.ltpf_analysis_plain)),
         "gain_estimate": (gain_kernel.gain_estimate, gain_bisection_plain),
+        "sns_front": (sns_analysis_kernel.sns_front, sns_front_plain),
+        "sns_finish": (sns_finish_tuple(sns_analysis_kernel.sns_finish),
+                       sns_finish_tuple(sns_finish_plain)),
     }
     lines = []
     more = {"tns_coefficients": tns_coef_cases(dev),
@@ -2463,6 +2513,19 @@ def main() -> int:
         equal_outputs(f"gain_estimate ({label})", gain_kern(*a), gain_plain(*a))
         gain_cells[label] = dict(args=a, ms=cuda_ms(lambda: gain_kern(*a)),
                                  plain_ms=cuda_ms(lambda: gain_plain(*a)))
+    # the SNS analysis' two kernels likewise
+    sns_cells = {}
+    for label, c, nb, x in (("48k/10ms/120B", cfg, 120, pcm_in[tile, 0]),
+                            ("16k/10ms/40B", cfg16, 40, mixed_pcm(cfg16, S_MAIN, 1, 37)[0]),
+                            ("48k/7.5ms/75B", cfg48_1, 75, mixed_pcm(cfg48_1, S_MAIN, 1, 38)[0])):
+        seen = capture_kernel_inputs(c, torch.as_tensor(x, device=dev), nb)
+        cell = sns_cells[label] = {}
+        for name in ("sns_front", "sns_finish"):
+            kern, plain = enc_fns[name]
+            a = seen[name]
+            equal_outputs(f"{name} ({label})", kern(*a), plain(*a))
+            cell[name] = dict(args=a, ms=cuda_ms(lambda: kern(*a)),
+                              plain_ms=cuda_ms(lambda: plain(*a)))
     host_ms = []
     for _ in range(REPS):
         t0 = time.perf_counter()
@@ -2546,6 +2609,8 @@ def main() -> int:
                        + 5 * cb.numel() * 4, 0.0)
     bounds["ltpf_analysis"] = ltpf_analysis_bound(real["ltpf_analysis"])
     bounds["gain_estimate"] = gain_bound(real["gain_estimate"])
+    for name in ("sns_front", "sns_finish"):
+        bounds[name] = sns_bound(name, real[name], enc_fns[name][1])
     # the pack kernel reads each stream's coded lines of x_q, the residual bit
     # of each line it may write, its 34 side fields and the operands of the
     # symbols it codes (each coded tuple's escapes and final), and writes
@@ -2598,6 +2663,16 @@ def main() -> int:
         cell.update(device_ms=device_ms(lambda: gain_kern(*a), "gain_estimate_kernel"),
                     one_stream_device_ms=device_ms(lambda: gain_kern(*one), "gain_estimate_kernel"))
         cell["bound_ms"], cell["bound_by"] = gain_bound(a)
+    # the SNS analysis: one stream alone is its chain's time on the card
+    for label, cell in sns_cells.items():
+        for name, c in cell.items():
+            kern, plain = enc_fns[name]
+            a = c.pop("args")
+            one = tuple(t[:1] if torch.is_tensor(t) else t for t in a)
+            glob = KERNELS[name][1]
+            c.update(device_ms=device_ms(lambda: kern(*a), glob),
+                     one_stream_device_ms=device_ms(lambda: kern(*one), glob))
+            c["bound_ms"], c["bound_by"] = sns_bound(name, a, plain)
 
     rt = lambda ms: S_MAIN * (cfg.nf / cfg.fs) / (ms / 1e3)
     log("encode-times", f"{card}, S={S_MAIN}, {REPS} reps alternated, median [min-max] ms: "
@@ -2641,6 +2716,14 @@ def main() -> int:
         f"{label}: kernel {c['ms']:.4f} ms (device {c['device_ms']:.4f}, one stream alone "
         f"{c['one_stream_device_ms']:.4f}) vs plain {c['plain_ms']:.4f} ms, bound "
         f"{c['bound_ms']:.5f} ms ({c['bound_by']})" for label, c in gain_cells.items()))
+    log("sns-analysis", f"{card}, S={S_MAIN}: " + "; ".join(
+        f"{label}: " + ", ".join(
+            f"{name} kernel {c['ms']:.4f} ms (device {c['device_ms']:.4f}, one stream alone "
+            f"{c['one_stream_device_ms']:.4f}) vs plain {c['plain_ms']:.4f} ms, bound "
+            f"{c['bound_ms']:.5f} ms ({c['bound_by']})" for name, c in cell.items())
+        + f"; both on the device {sum(c['device_ms'] for c in cell.values()):.4f} ms, one "
+          f"stream alone {sum(c['one_stream_device_ms'] for c in cell.values()):.4f} ms"
+        for label, cell in sns_cells.items()))
     log("host-pack", f"{card}: the C++ host packer (native/lc3_bitstream.cc, {host_pack.N_THREADS} "
                      f"threads) on the pack kernel's bench fields, S={S_MAIN}, 150 B: "
                      f"{spread(host_ms)} ms wall, median [min-max] of {REPS}")
@@ -2678,6 +2761,9 @@ def main() -> int:
     kernels[list(KERNELS).index("ltpf_analysis")].update(
         one_stream_device_ms=lt_alone, cells=lt_cells)
     kernels[list(KERNELS).index("gain_estimate")].update(cells=gain_cells)
+    for name in ("sns_front", "sns_finish"):
+        kernels[list(KERNELS).index(name)].update(
+            cells={label: cell[name] for label, cell in sns_cells.items()})
     kernels[list(KERNELS).index("tns_synthesis")].update(
         chain_floor_ms=chain_floor, chain_cycles_a_line=min(chain_cyc), chain_lines=chain_lines,
         sm_clock_mhz=clock)

@@ -11,9 +11,10 @@ in minutes):
          -o build/lc3jax_torch/liblc3jax_torch_<hash>.so *.o
 
 `--fmad=false` keeps every float multiply and add separately rounded, so the
-TNS, LTPF (both filter passes and the encoder's pitch analysis), SNS and
-gain estimate kernels equal their plain PyTorch versions bit for bit
-(eager PyTorch rounds once per op and never contracts to fma).
+TNS, LTPF (both filter passes and the encoder's pitch analysis), SNS (the
+analysis and the PVQ search) and gain estimate kernels equal their plain
+PyTorch versions bit for bit (eager PyTorch rounds once per op and never
+contracts to fma).
 
 The library is built at first use into `build/lc3jax_torch/` at the repo
 root, keyed by a hash of the sources and the flags, so an edited source
@@ -24,7 +25,7 @@ is no fallback for a CUDA tensor.
 Each C entry point launches on the stream it is given, allocates nothing and
 returns `cudaGetLastError()`; `check` turns a non-zero code into an error.
 Pointers and the stream are passed as `ctypes.c_void_p`, ints as `c_int`,
-floats as `c_float`.
+floats as `c_float`, doubles as `c_double`.
 
 The nvcc run and the library's load are the process's set-up spans
 `kernels.build` and `kernels.load` (`metrics.process_spans`).
@@ -46,7 +47,7 @@ CUDA_DEFAULT = Path("/usr/local/cuda")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC")
 
-_PTR, _INT, _FLT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PTR, _INT, _FLT, _DBL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
 # C signatures: name -> argtypes (every entry returns int, a cudaError_t)
 SIGNATURES = {
     "lc3t_tns_synthesis": [_PTR] * 7 + [_INT] * 2 + [_PTR],
@@ -59,6 +60,8 @@ SIGNATURES = {
     "lc3t_pack": [_PTR] * 6 + [_INT] * 5 + [_PTR],
     "lc3t_ltpf_analysis": [_PTR] * 31 + [_INT] * 9 + [_FLT] + [_PTR],
     "lc3t_gain_estimate": [_PTR] * 4 + [_INT] * 3 + [_FLT] * 4 + [_PTR],
+    "lc3t_sns_front": [_PTR] * 14 + [_INT] * 2 + [_FLT] + [_PTR],
+    "lc3t_sns_finish": [_PTR] * 16 + [_INT] * 4 + [_DBL] * 4 + [_PTR],
 }
 
 _lib = None

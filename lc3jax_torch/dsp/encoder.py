@@ -10,8 +10,9 @@ step's dict of integer fields, which coding/host_pack.py packs into bytes
 on the host, or, with emit_pack, coding/pack_kernel.py on the device.
 
 Six stages launch hand-written CUDA kernels on the card, each with a plain
-PyTorch version that a CPU tensor takes: the SNS PVQ search
-(sns_kernel.py), the TNS coefficients and analysis lattice
+PyTorch version that a CPU tensor takes: the whole SNS analysis, three
+launches (sns_analysis_kernel.py around the PVQ search, sns_kernel.py),
+the TNS coefficients and analysis lattice
 (tns_enc_kernel.py), the whole LTPF pitch analysis (ltpf_enc_kernel.py),
 the spectral quantizer's gain bisection (gain_kernel.py), and the bit
 model's table lookups, twice a step (bitmodel_kernel.py; the second pass
@@ -50,6 +51,7 @@ from .encoder_ltpf import LtpfEncState, ltpf_enc_init
 from .fftexact import batched_dct_iv
 from .gain_kernel import C7, C27, C36, C43, gain_estimate
 from .ltpf_enc_kernel import ltpf_analysis
+from .sns_analysis_kernel import sns_finish, sns_front
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -92,6 +94,7 @@ class EncoderParams:
     attack_blocks: int
     attack_pos_limit: int
     num_downsampled: int
+    sns_attack_atten: float  # the SNS attack smoothing's attenuation
 
 
 @lru_cache(maxsize=None)
@@ -173,6 +176,7 @@ def encoder_params(cfg: Lc3Config) -> EncoderParams:
         attack_blocks=attack_blocks,
         attack_pos_limit=attack_lim,
         num_downsampled=num_ds,
+        sns_attack_atten=0.5 if cfg.n_ms == FrameDuration.MS10 else 0.3,
     )
 
 
@@ -359,7 +363,36 @@ def attack_detect(p: EncoderParams, state: EncoderState, x_s, nbytes: int):
 
 def sns_analysis(tab, x, e_b, attack):
     """SNS analysis and two-stage VQ (ref/sns_enc.py); returns the shaped
-    spectrum and the bitstream fields. Stage 2's PVQ search is the kernel."""
+    spectrum and the bitstream fields. Three kernels: the scale factors, the
+    stage-1 search and the rotation (sns_front); stage 2's PVQ search
+    (sns_pvq); the enumeration, synthesis and shaping (sns_finish)."""
+    t2rot, st1, ind_lf, ind_hf = sns_front(tab, e_b, attack)
+    y_sel, y0s, xq_sel, shape_j, gind, g_sel = sns_kernel.sns_pvq(t2rot)
+    return sns_finish(tab, x, st1, ind_lf, ind_hf, y_sel, y0s, xq_sel, shape_j, gind, g_sel)
+
+
+def sns_front_plain(tab, e_b, attack):
+    """The scale factors, stage 1's codebook search and stage 2's rotation
+    from the band energies e_b (f32 [S, nb]) and the attack flags (bool
+    [S]): (t2rot f32 [S, 16], st1 f32 [S, 16], ind_lf int64 [S], ind_hf
+    int64 [S]). The plain version of sns_analysis_kernel.sns_front (its CPU
+    path)."""
+    scf = sns_scale_factors(tab, e_b, attack)
+
+    # stage 1: codebook MSE search, the oracle's per-row fold (first min wins)
+    err_lf, err_hf = sns_codebook_errors(tab, scf)
+    ind_lf = err_lf.argmin(1)
+    ind_hf = err_hf.argmin(1)
+    st1 = torch.cat([tab.lfcb[ind_lf], tab.hfcb[ind_hf]], dim=1)
+    r1 = scf - st1
+
+    # stage 2's rotation (row-major fold); the PVQ search follows
+    t2rot = fp.seq_fold(r1[:, :, None] * tab.dct16[None], 1)
+    return t2rot, st1, ind_lf, ind_hf
+
+
+def sns_scale_factors(tab, e_b, attack):
+    """The 16 scale factors (f32 [S, 16]) of sns_front_plain, before stage 1."""
     p = tab.p
     nb = p.cfg.nb
     diff = 64 - nb
@@ -394,27 +427,23 @@ def sns_analysis(tab, x, e_b, attack):
         (((ds[:, 12:13] + ds[:, 13:14]) + ds[:, 14:15]) + ds[:, 15:16]) / 4.0,
         ((ds[:, 13:14] + ds[:, 14:15]) + ds[:, 15:16]) / d3,
     ], dim=1)
-    atten = 0.5 if p.cfg.n_ms == FrameDuration.MS10 else 0.3
-    att = atten * (att - fp.seq_fold(att, 1)[:, None] / 16.0)
-    scf = torch.where(attack[:, None], att, ds)
+    att = p.sns_attack_atten * (att - fp.seq_fold(att, 1)[:, None] / 16.0)
+    return torch.where(attack[:, None], att, ds)
 
-    # stage 1: codebook MSE search, the oracle's per-row fold (first min wins)
+
+def sns_codebook_errors(tab, scf):
+    """Stage 1's squared errors of the scale factors' halves against each
+    codebook row (f32 [S, 32] each, low and high), each row folded in order."""
     e_lf = scf[:, None, :8] - tab.lfcb[None]
     e_hf = scf[:, None, 8:] - tab.hfcb[None]
-    ind_lf = fp.seq_fold(e_lf * e_lf, 2).argmin(1)
-    ind_hf = fp.seq_fold(e_hf * e_hf, 2).argmin(1)
-    st1 = torch.cat([tab.lfcb[ind_lf], tab.hfcb[ind_hf]], dim=1)
-    r1 = scf - st1
-
-    # stage 2: rotation (row-major fold), then the PVQ kernel
-    t2rot = fp.seq_fold(r1[:, :, None] * tab.dct16[None], 1)
-    y_sel, y0s, xq_sel, shape_j, gind, g_sel = sns_kernel.sns_pvq(t2rot)
-    return _sns_finish(tab, x, st1, ind_lf, ind_hf, y_sel, y0s, xq_sel, shape_j, gind, g_sel)
+    return fp.seq_fold(e_lf * e_lf, 2), fp.seq_fold(e_hf * e_hf, 2)
 
 
-def _sns_finish(tab, x, st1, ind_lf, ind_hf, y_sel, y0s, xq_sel, shape_j, gind, g_sel):
+def sns_finish_plain(tab, x, st1, ind_lf, ind_hf, y_sel, y0s, xq_sel, shape_j, gind, g_sel):
     """MPVQ enumeration, joint index, scale-factor synthesis, interpolation
-    and spectral shaping (ref/sns_enc.py:129-155, 354-377)."""
+    and spectral shaping (ref/sns_enc.py:129-155, 354-377): (x_shaped f32
+    [S, ne], the seven int32 fields). The plain version of
+    sns_analysis_kernel.sns_finish (its CPU path)."""
     p = tab.p
     S = x.shape[0]
     nb = p.cfg.nb
