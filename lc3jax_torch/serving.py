@@ -16,12 +16,15 @@ tensor of its own (the graph's output cloned once); one fetched to the host
 is read straight from the graph's output.
 
 `metrics` (metrics.CodecMetrics) counts each call and each host read of a
-device value (`host_syncs`), and records spans: `decode` (device parse) and
+device value (`host_syncs`), and records spans: `decode` (either parse) and
 `encode` open a root span, `serve.decode` or `serve.encode`, with children
-`serve.upload` (the host array to the card), the compiled step's
-`step.copy_in` and `step.replay`, `serve.fetch` (the wait for the card and
-the copy of the PCM or the frames to the host) and, decoding,
-`serve.plc_count` (the concealed-frame count read).
+`serve.upload` (the host array, or the host-parsed fields, to the card),
+the compiled step's `step.copy_in` and `step.replay`, `serve.fetch` (the
+wait for the card and the copy of the PCM or the frames to the host) and,
+decoding, `serve.plc_count` (the device parse's concealed-frame count read)
+or `serve.parse` (the host parse: the C++ parser into its ring, the wait
+for the ring's set included). `decode_stream`'s host-parse modes open no
+root: there these children are spans outside any call, as the step's are.
 """
 
 from __future__ import annotations
@@ -132,24 +135,34 @@ class BatchDecoder:
         return x.pin_memory().to(self.device, non_blocking=True)
 
     def _host_parse(self, payloads: np.ndarray):
-        """The C++ parse of one batch into the parser's ring: (its buffer
-        set, n_bad, nbytes). The parser waits on a set's upload event before
-        it writes that set again."""
+        """The C++ parse of one batch into the parser's ring (`serve.parse`):
+        (its buffer set, n_bad, nbytes). The parser waits on a set's upload
+        event before it writes that set again."""
         self._check(payloads)
-        n_bad = int(self._parser.parse(payloads)["bad_frame"].sum())
-        return self._parser.last, n_bad, payloads.shape[1]
+        t = time.time_ns()
+        bad = self._parser.parse(payloads)["bad_frame"]
+        self.metrics.span("serve.parse", t)
+        return self._parser.last, int(bad.sum()), payloads.shape[1]
 
     def _decode_parsed(self, slot, n_bad: int, nbytes: int, fetch: bool = True):
         """A parsed batch uploaded straight into the host-parse step's
-        static field buffers (no further copy), then decoded: numpy PCM
-        (fetch) or a tensor of its own."""
+        static field buffers (`serve.upload`; no further copy), then
+        decoded: numpy PCM (fetch, `serve.fetch`) or a tensor of its own."""
+        m = self.metrics
         step = self._step("parsed", nbytes)
         bufs = step.buffers()
+        t = time.time_ns()
         frames = self._parser.upload(slot, into=bufs[0] if bufs else None)
+        m.span("serve.upload", t)
         _, pcm = (step.run if fetch else step)(self.state, frames)
-        self.metrics.host_syncs += fetch
-        self.metrics.record_decode(self.n_streams, self._frame_seconds, n_bad=n_bad)
-        return pcm.cpu().numpy() if fetch else pcm
+        m.record_decode(self.n_streams, self._frame_seconds, n_bad=n_bad)
+        if not fetch:
+            return pcm
+        t = time.time_ns()
+        out = pcm.cpu().numpy()
+        m.span("serve.fetch", t)
+        m.host_syncs += 1
+        return out
 
     def _decode_untracked(self, payloads: np.ndarray, fetch: bool = False):
         """The fused step with its concealed-frame count left unread (the
@@ -167,11 +180,11 @@ class BatchDecoder:
         """payloads uint8 [S, nbytes] (host) -> int16 PCM [S, nf] (host);
         nbytes may differ per call (variable bitrate mid-stream, state
         preserved)."""
-        if not self.device_parse:
-            return self._decode_parsed(*self._host_parse(payloads))
         m = self.metrics
         t_call = m.begin()
         try:
+            if not self.device_parse:
+                return self._decode_parsed(*self._host_parse(payloads))
             self._check(payloads)
             t = time.time_ns()
             x = self._to_device(payloads)

@@ -55,11 +55,21 @@ from codecbench.traffic import Traffic  # noqa: E402
 from lc3jax_torch import metrics, serving  # noqa: E402
 from lc3jax_torch.config import FrameDuration, Lc3Config  # noqa: E402
 
+# a call's child spans by route: the device-parse decode, the host-parse
+# decode (`device_parse=False`), the encode
 CHILDREN = {"decode": ["serve.upload", "step.copy_in", "step.replay", "serve.fetch",
                        "serve.plc_count"],
+            "decode.hostparse": ["serve.parse", "serve.upload", "step.copy_in", "step.replay",
+                                 "serve.fetch"],
             "encode": ["serve.upload", "step.copy_in", "step.replay", "serve.fetch"]}
 CAPTURE = ("step.warmup", "step.graph", "step.instantiate")
 ORDERS = (("on", "off", "off", "on"), ("off", "on", "on", "off"))
+
+
+def route(mix: dict) -> str:
+    """The mix's key of CHILDREN."""
+    host = mix["direction"] == "decode" and not mix["coder"]["options"].get("device_parse", True)
+    return "decode.hostparse" if host else mix["direction"]
 
 
 def build_coder(cfg: dict, mix: dict):
@@ -88,7 +98,7 @@ def setup_split(coder) -> dict:
     return {"captures": rows, **{s.name: s.ms for s in kernels}}
 
 
-def call_split(coder, call, inputs, n: int, direction: str, calls: int) -> tuple:
+def call_split(coder, call, inputs, n: int, direction: str, kids: list, calls: int) -> tuple:
     """(next batch, medians over `calls` calls of each span's ms, the root
     less its children, the sampled replays' device ms, and the readers')."""
     for _ in range(calls):
@@ -99,11 +109,11 @@ def call_split(coder, call, inputs, n: int, direction: str, calls: int) -> tuple
     root = f"serve.{direction}"
     kept = readers.window_calls(ctx) or []
     out = {"calls": len(kept)}
-    for name in [root] + CHILDREN[direction]:
+    for name in [root] + kids:
         vals = [readers.total_ms(c[name]) for c in kept if name in c]
         out[name] = statistics.median(vals) if vals else None
     out["root less children"] = statistics.median(
-        c[root][0].ms - sum(readers.total_ms(c.get(k, ())) for k in CHILDREN[direction])
+        c[root][0].ms - sum(readers.total_ms(c.get(k, ())) for k in kids)
         for c in kept) if kept else None
     dev = [s.device_ms for c in kept for s in c.get("step.replay", ()) if s.device_ms is not None]
     out["replay_device_samples"] = len(dev)
@@ -112,12 +122,12 @@ def call_split(coder, call, inputs, n: int, direction: str, calls: int) -> tuple
     return n, out
 
 
-def recorder_us(direction: str, reps: int) -> dict:
+def recorder_us(direction: str, kids: list, reps: int) -> dict:
     """Microseconds a call of the recorder's own work: the root, each child
     span with its caller's clock read, the replay's edge sampling; with
     spans on, off, and on without the edge sampling; the best of four
     passes of `reps` calls on one recorder, less the bare loop."""
-    root, kids = f"serve.{direction}", CHILDREN[direction]
+    root = f"serve.{direction}"
     device = torch.device("cuda", torch.cuda.current_device())
 
     def loop(m, edges=True):
@@ -232,8 +242,9 @@ def one_cell(name: str, seed: int, seconds: float, calls: int, reps: int) -> dic
         n += 1
     torch.cuda.synchronize()
     out["setup"] = setup_split(coder)
-    n, out["split"] = call_split(coder, call, inputs, n, direction, calls)
-    out["recorder"] = recorder_us(direction, reps)
+    kids = CHILDREN[route(mix)]
+    n, out["split"] = call_split(coder, call, inputs, n, direction, kids, calls)
+    out["recorder"] = recorder_us(direction, kids, reps)
     out["settle"] = phase(cell, seed, seconds, True)
     out["phases"] = [phase(cell, seed, seconds, mode == "on")
                      for mode in ORDERS[spec.benchmark()["workloads"].index(cell) % 2]]
